@@ -1,0 +1,88 @@
+"""Environment API over batched tensors — the port of the JAX package's
+``envs/core.py`` contract (alphazero_general_tpu/envs/core.py:56-126).
+
+The JAX env functions take ONE unbatched state and are batched with
+``vmap``; here every function takes a batch of ``B`` games directly. A state
+is a dataclass of tensors whose leading axis is the game batch, and each
+function returns new tensors (it never writes into its inputs).
+
+=====================  ======================================================
+JAX (one game)         here (a batch of B games)
+=====================  ======================================================
+``init()``             ``init(batch_size, device)``
+``step(s, a)``         ``step(state, action i32[B])``
+``valid_moves(s)``     ``valid_moves(state) -> bool[B, A]``
+``win_state(s)``       ``win_state(state) -> f32[B, NUM_PLAYERS + 1]``
+``observation(s)``     ``observation(state) -> f32[B, C, H, W]``
+``symmetries(o, p)``   ``symmetries(obs, pi) -> (obs[B, K, ...], pi[B, K, A])``
+=====================  ======================================================
+
+``win_state`` keeps the reference convention: one slot per player set to 1.0
+on a win, the last slot 1.0 on a draw, all zeros while the game runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple, Type
+
+import torch
+
+
+@dataclasses.dataclass
+class EnvState:
+    """Fields every env state has, each with the game batch leading."""
+
+    player: torch.Tensor  # int32[B], 0..NUM_PLAYERS-1
+    turns: torch.Tensor  # int32[B]
+    last_action: torch.Tensor  # int32[B], -1 before the first move
+
+
+def state_items(state: EnvState) -> Dict[str, torch.Tensor]:
+    """Name → tensor of every field of ``state``, in declaration order."""
+    return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+
+
+class Env:
+    """Static-function environment over batched states."""
+
+    NAME: str = "env"
+    NUM_PLAYERS: int = 2
+    ACTION_SIZE: int = 0
+    OBS_SHAPE: Tuple[int, int, int] = (1, 1, 1)  # (C, H, W)
+    MAX_TURNS: int = 0
+    HAS_DRAW: bool = True
+    #: number of symmetric copies returned by ``symmetries``
+    NUM_SYMMETRIES: int = 1
+
+    State: Type[EnvState] = EnvState
+
+    @staticmethod
+    def init(batch_size: int, device="cuda") -> EnvState:
+        raise NotImplementedError
+
+    @staticmethod
+    def step(state: EnvState, action: torch.Tensor) -> EnvState:
+        """Apply ``action`` (assumed legal) and advance player and turn."""
+        raise NotImplementedError
+
+    @staticmethod
+    def valid_moves(state: EnvState) -> torch.Tensor:
+        raise NotImplementedError
+
+    @staticmethod
+    def win_state(state: EnvState) -> torch.Tensor:
+        raise NotImplementedError
+
+    @staticmethod
+    def observation(state: EnvState) -> torch.Tensor:
+        raise NotImplementedError
+
+    @classmethod
+    def symmetries(cls, obs: torch.Tensor, pi: torch.Tensor):
+        """Stacked symmetric copies on axis 1; index 0 is the identity."""
+        return obs[:, None], pi[:, None]
+
+    @classmethod
+    def terminated(cls, state: EnvState) -> torch.Tensor:
+        return torch.any(cls.win_state(state) > 0, dim=-1)

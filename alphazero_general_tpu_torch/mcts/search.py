@@ -1,0 +1,98 @@
+"""Batched search driver — the port of the fresh-tree game-minor path of
+alphazero_general_tpu/mcts/search.py (``search`` :347, ``_search_t`` :288,
+``_simulate_step_t`` :209, ``uniform_eval_fn`` :428).
+
+One simulation for every game is: the descent kernel, the leaf's allocation
+and expansion, ONE batched network call, the prior install, and the backup
+kernel. The loop over simulations runs on the host and never waits for the
+device: nothing in it reads a tensor back.
+
+Not ported yet: the batch-major general path (trees carried across moves),
+``leaf_batch`` > 1 rounds and the growing-arena segments of
+``_segment_plan``. The segments change only buffer extents and give results
+identical to the one flat loop run here.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from alphazero_general_tpu_torch.mcts import tree_t as TT
+from alphazero_general_tpu_torch.mcts.tree import SearchSpec
+from alphazero_general_tpu_torch.ops.backup import backup_batched_t
+from alphazero_general_tpu_torch.ops.descend import descend_batched_t
+
+#: Maps observations [B, C, H, W] to (policy [B, A], value [B, V]), both as
+#: probabilities (NNetWrapper.py:225-232).
+EvalFn = Callable[[torch.Tensor], tuple]
+
+
+def _leaf_step_t(env, tt, spec, eval_fn, root_adjust: bool, slot: int,
+                 expand_root_only: bool, generator):
+    """Everything of one simulation before the backup: walk, expand,
+    evaluate, install the prior. Returns the terminal-resolved values."""
+    if expand_root_only:
+        obs, leaf_e, leaf_valids = TT.expand_root_t(env, tt)
+    else:
+        walk = descend_batched_t(tt, spec)
+        obs, leaf_e, leaf_valids = TT.apply_walk_observe_t(env, tt, *walk,
+                                                           slot)
+    pi, value = eval_fn(obs)
+    # Terminal leaves back up their stored result (MCTS.pyx:234-235).
+    is_term = (leaf_e > 0).any(dim=-1, keepdim=True)
+    values = torch.where(is_term, leaf_e, value.to(torch.float32))
+    TT.install_prior_t(tt, pi.to(torch.float32), spec, root_adjust, slot,
+                       leaf_valids, generator=generator)
+    return values
+
+
+def _simulate_step_t(env, tt, spec, eval_fn, root_adjust: bool, slot: int,
+                     expand_root_only: bool = False, generator=None) -> None:
+    """One simulation for every game of ``tt``, in place."""
+    values = _leaf_step_t(env, tt, spec, eval_fn, root_adjust, slot,
+                          expand_root_only, generator)
+    backup_batched_t(tt, values, spec)
+
+
+def _search_t(env, tt, spec, eval_fn, sims: int, generator):
+    """Fresh-tree search: simulation k writes row k of every game."""
+    _simulate_step_t(env, tt, spec, eval_fn, root_adjust=True, slot=0,
+                     expand_root_only=True, generator=generator)
+    for slot in range(1, sims):
+        _simulate_step_t(env, tt, spec, eval_fn, root_adjust=False,
+                         slot=slot, generator=generator)
+    return tt
+
+
+def search(env, tt, spec: SearchSpec, eval_fn: EvalFn, sims: int,
+           generator=None):
+    """Run ``sims`` simulations on the fresh trees ``tt`` (MCTS.pyx:165-173)
+    and return them, updated in place.
+
+    Only the first simulation can have the root as its leaf, so only it
+    takes the root temperature and noise (MCTS.pyx:247-256). Random draws
+    (root Dirichlet noise, tie noise) come from ``generator``; a spec with
+    ``add_root_noise=False`` and ``tie_noise=0`` draws nothing.
+    """
+    if not 1 <= sims <= tt.capacity:
+        raise ValueError(f"sims must be in [1, {tt.capacity}] (the tree's "
+                         f"node rows), got {sims}")
+    return _search_t(env, tt, spec, eval_fn, sims, generator)
+
+
+def uniform_eval_fn(action_size: int, value_size: int) -> EvalFn:
+    """Model-free evaluation: uniform policy and zero values (raw search,
+    MCTS.pyx:175-183). The JAX package's ``uniform_value=True`` variant
+    (its warmup agent) is not ported yet."""
+
+    def eval_fn(obs):
+        B = obs.shape[0]
+        pi = torch.ones((B, action_size), dtype=torch.float32,
+                        device=obs.device)
+        value = torch.zeros((B, value_size), dtype=torch.float32,
+                            device=obs.device)
+        return pi, value
+
+    return eval_fn

@@ -1,0 +1,278 @@
+"""The game-minor search tree — the port of
+alphazero_general_tpu/mcts/tree_t.py (TreeT :44-90 and the fresh-tree write
+path :285-542).
+
+Every tree column is ``[N, B]``: the game batch rides the LAST axis, so
+thread ``b`` of a kernel reads column ``b`` of each row and a warp's loads
+are coalesced. Row arrays are flattened per node on the first axis
+(``prior`` is ``[N*A, B]``, ``e`` is ``[N*V, B]``), and each env-state field
+is stored ``[N, S, B]`` in ``node_state``. Row ``N-1`` is the write sink,
+which no walk ever treats as a child.
+
+Fresh trees only: simulation ``k`` of a search writes every game's new node
+at the same row ``k`` (the uniform slot). A game whose walk ended at a
+terminal node writes junk at that row instead, and its ``parent`` entry
+there stays UNVISITED, so nothing can reach the junk.
+
+The functions here update the TreeT IN PLACE (the JAX versions return new
+trees), which spares a copy of every column per simulation.
+
+Differences from the JAX TreeT, on purpose:
+
+* no ``expanded`` bitmask: the walk reads only the rank-walk pointers
+  (``nba``/``nbp``), and the expanded set of a node is recoverable from them
+  (actions expand in descending-(prior, -index) order, see tree.next_best);
+* no ``big_rows`` layout: connect4 (A = 7) never takes it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from alphazero_general_tpu_torch.envs.core import state_items
+from alphazero_general_tpu_torch.mcts import tree as T
+from alphazero_general_tpu_torch.mcts.tree import (
+    INVALID_PRIOR, NBP_PRISTINE, NOISE_ALPHA_RATIO, ROOT, UNVISITED,
+    SearchSpec, _renorm,
+)
+
+
+@dataclasses.dataclass
+class TreeT:
+    """A batch of search trees in game-minor layout (batch axis last)."""
+
+    node_state: Dict[str, torch.Tensor]  # field → [N, S, B]
+    state_shapes: Dict[str, Tuple[int, ...]]  # field → per-game shape
+    parent: torch.Tensor  # int32[N, B]
+    parent_action: torch.Tensor  # int32[N, B]
+    valids: torch.Tensor  # float32[N*A, B] (0/1)
+    prior: torch.Tensor  # float32[N*A, B]; INVALID_PRIOR where invalid
+    n: torch.Tensor  # int32[N, B] visit counts
+    q: torch.Tensor  # float32[N, B] mean backed-up value (parent's view)
+    v: torch.Tensor  # float32[N, B] first-visit value (own view)
+    e: torch.Tensor  # float32[N*V, B] terminal win vectors
+    eany: torch.Tensor  # float32[N, B]; 1.0 where the node is terminal
+    player: torch.Tensor  # int32[N, B] player to move at the node
+    edge_prior: torch.Tensor  # float32[N, B] prior of the edge into the node
+    nba: torch.Tensor  # int32[N, B] rank-walk pointer: best unexpanded action
+    nbp: torch.Tensor  # float32[N, B] its prior (NBP_NONE / NBP_PRISTINE)
+    next_free: torch.Tensor  # int32[B]
+    depth: torch.Tensor  # int32[B] depth of the last walk
+    max_depth: torch.Tensor  # int32[B]
+    leaf: torch.Tensor  # int32[B] node of the pending leaf
+    num_actions: int
+    value_size: int
+
+    @property
+    def capacity(self) -> int:
+        """Usable node rows (the last row is the write sink)."""
+        return self.parent.shape[0] - 1
+
+
+def init_tree_t(env, root_states, capacity: int, value_size: int) -> TreeT:
+    """Fresh trees rooted at ``root_states`` (a batched env state) with
+    ``capacity`` node rows plus the sink (tree.py:299 init_tree, built
+    directly in the game-minor layout)."""
+    items = state_items(root_states)
+    B = root_states.player.shape[0]
+    dev = root_states.player.device
+    rows = capacity + 1
+    A = env.ACTION_SIZE
+    node_state, shapes = {}, {}
+    for name, x in items.items():
+        shapes[name] = tuple(x.shape[1:])
+        S = math.prod(shapes[name])
+        buf = torch.zeros((rows, S, B), dtype=x.dtype, device=dev)
+        buf[0] = x.reshape(B, S).T
+        node_state[name] = buf
+
+    def full(shape, fill, dtype):
+        return torch.full(shape, fill, dtype=dtype, device=dev)
+
+    i32, f32 = torch.int32, torch.float32
+    return TreeT(
+        node_state=node_state,
+        state_shapes=shapes,
+        parent=full((rows, B), UNVISITED, i32),
+        parent_action=full((rows, B), UNVISITED, i32),
+        valids=full((rows * A, B), 0.0, f32),
+        prior=full((rows * A, B), 0.0, f32),
+        n=full((rows, B), 0, i32),
+        q=full((rows, B), 0.0, f32),
+        v=full((rows, B), 0.0, f32),
+        e=full((rows * value_size, B), 0.0, f32),
+        eany=full((rows, B), 0.0, f32),
+        player=full((rows, B), 0, i32),
+        edge_prior=full((rows, B), 0.0, f32),
+        nba=full((rows, B), 0, i32),
+        nbp=full((rows, B), NBP_PRISTINE, f32),
+        next_free=full((B,), 1, i32),
+        depth=full((B,), 0, i32),
+        max_depth=full((B,), 0, i32),
+        leaf=full((B,), ROOT, i32),
+        num_actions=A,
+        value_size=value_size,
+    )
+
+
+def _make_state(env, tt: TreeT, rows: Dict[str, torch.Tensor]):
+    """Env state from per-field ``[B, S]`` rows."""
+    return env.State(**{
+        name: x.reshape((x.shape[0],) + tt.state_shapes[name])
+        for name, x in rows.items()})
+
+
+def gather_states(env, tt: TreeT, idx: torch.Tensor):
+    """The env state stored at node ``idx[b]`` of every game b
+    (tree_t.py:285 _gather_states), as a batched game-major state."""
+    games = torch.arange(idx.shape[0], device=idx.device)
+    rows = idx.long()
+    return _make_state(env, tt, {
+        name: buf[rows, :, games] for name, buf in tt.node_state.items()})
+
+
+def root_states(env, tt: TreeT):
+    """Row 0 of every game's node_state."""
+    return _make_state(env, tt, {
+        name: buf[0].T for name, buf in tt.node_state.items()})
+
+
+def scatter_states_uniform(tt: TreeT, states, slot: int) -> None:
+    """Write every game's state at the same row ``slot``."""
+    for name, x in state_items(states).items():
+        buf = tt.node_state[name]
+        buf[slot] = x.reshape(x.shape[0], -1).T
+
+
+def leaf_data(env, states):
+    """(win f32[B, V], valid bool[B, A], obs f32[B, ...], player i32[B]) of
+    a batched state (tree_t.py _leaf_data)."""
+    win = env.win_state(states).to(torch.float32)
+    return win, env.valid_moves(states), env.observation(states), \
+        states.player
+
+
+def write_expansion(tt: TreeT, slot: int, win, valid, player) -> None:
+    """Expansion writes at the uniform ``slot`` (MCTS.pyx:223-226): player,
+    terminal vector and valid moves (tree_t.py:336 _write_expansion)."""
+    V, A = tt.value_size, tt.num_actions
+    tt.player[slot] = player
+    tt.e[slot * V:(slot + 1) * V] = win.T
+    tt.eany[slot] = (win > 0).any(dim=-1).to(torch.float32)
+    tt.valids[slot * A:(slot + 1) * A] = valid.T.to(torch.float32)
+
+
+def expand_root_t(env, tt: TreeT):
+    """First simulation on a fresh tree: every game's leaf is the root
+    (tree_t.py:369). Returns (obs, e_leaf, leaf_valids)."""
+    win, valid, obs, player = leaf_data(env, root_states(env, tt))
+    write_expansion(tt, 0, win, valid, player)
+    tt.depth.zero_()
+    tt.leaf.zero_()
+    return obs, win, valid
+
+
+def apply_walk_observe_t(env, tt: TreeT, node, action, child, depth,
+                         skip_walk, p_sel, slot: int):
+    """Allocate and expand the walk's leaf at the uniform row ``slot``
+    (tree_t.py:382, single-leaf rounds). Returns (obs, e_leaf, leaf_valids).
+
+    The leaf's terminal vector is read back from the STORED e row, not from
+    the stepped state: when a walk stops at an already-terminal child, the
+    re-stepped state is junk (it can even change the winner).
+    """
+    B = node.shape[0]
+    games = torch.arange(B, device=node.device)
+    rows = node.long()
+    need_alloc = (child == UNVISITED) & ~skip_walk
+
+    child_states = env.step(gather_states(env, tt, node), action)
+    win, valid, obs, player = leaf_data(env, child_states)
+
+    # Edge insertion: games that do not allocate keep UNVISITED at the slot,
+    # so the junk they write there stays unreachable.
+    tt.parent[slot] = torch.where(need_alloc, node, tt.parent[slot])
+    tt.parent_action[slot] = torch.where(need_alloc, action,
+                                         tt.parent_action[slot])
+    # Advance the expanded node's rank-walk pointer past the new edge.
+    A = tt.num_actions
+    prow = tt.prior.view(-1, A, B)[rows, :, games]  # [B, A]
+    nb_a, nb_p = T.next_best(prow, p_sel, action)
+    tt.nba[rows, games] = torch.where(need_alloc, nb_a, tt.nba[rows, games])
+    tt.nbp[rows, games] = torch.where(need_alloc, nb_p, tt.nbp[rows, games])
+    scatter_states_uniform(tt, child_states, slot)
+    tt.edge_prior[slot] = p_sel
+    tt.next_free.fill_(slot + 1)
+
+    leaf = torch.where(skip_walk, ROOT,
+                       torch.where(need_alloc, slot, child)).to(torch.int32)
+    write_expansion(tt, slot, win, valid, player)
+    tt.depth.copy_(depth)
+    torch.maximum(tt.max_depth, depth, out=tt.max_depth)
+    tt.leaf.copy_(leaf)
+    e_leaf = tt.e.view(-1, tt.value_size, B)[leaf.long(), :, games]  # [B, V]
+    return obs, e_leaf, valid
+
+
+def _draws_needed(what: str, generator):
+    if generator is None:
+        raise ValueError(f"install_prior_t needs {what}: pass them, or a "
+                         "torch.Generator to draw them from")
+
+
+def install_prior_t(tt: TreeT, pi, spec: SearchSpec, root_adjust: bool,
+                    slot: int, leaf_valids, gammas=None, tie=None,
+                    generator=None) -> None:
+    """Mask and renormalise the policy ``pi`` [B, A] against the leaf's
+    valid moves and store it at row ``slot``, with root temperature and
+    Dirichlet noise (as ``spec`` enables them) where the leaf is the root
+    (tree_t.py:472, MCTS.pyx:236-258).
+
+    Random draws: ``gammas`` [B, A] are the standard Gamma(alpha) draws
+    behind the Dirichlet noise (alpha = 10.83 / #valid moves of the game),
+    ``tie`` [B, A] the uniform [0, 1) draws behind the tie noise. Each one
+    that is needed and not given is drawn from ``generator``.
+    """
+    B, A = pi.shape
+    valids = leaf_valids
+    masked = torch.where(valids, pi, 0.0)
+    norm = masked.sum(dim=-1, keepdim=True)
+    nvalid = torch.clamp(valids.sum(dim=-1, keepdim=True), min=1)
+    masked = torch.where(norm > 0, masked / norm,
+                         valids.to(torch.float32) / nvalid)
+
+    new_prior = masked
+    if root_adjust:
+        p = masked
+        if spec.add_root_temp:
+            p = _renorm(torch.where(valids, p ** (1.0 / spec.root_policy_temp),
+                                    0.0))
+        if spec.add_root_noise:
+            if gammas is None:
+                _draws_needed("Dirichlet gamma draws", generator)
+                alpha = NOISE_ALPHA_RATIO / nvalid.to(torch.float32)
+                gammas = torch._standard_gamma(
+                    alpha.expand(B, A).contiguous(), generator=generator)
+            gam = torch.where(valids, gammas, 0.0)
+            noise = gam / torch.clamp(gam.sum(dim=-1, keepdim=True),
+                                      min=1e-30)
+            p = p * (1 - spec.root_noise_frac) + spec.root_noise_frac * noise
+            p = torch.where(valids, p, 0.0)
+        is_root = (tt.leaf == ROOT)[:, None]
+        new_prior = torch.where(is_root, p, masked)
+    if spec.tie_noise:
+        if tie is None:
+            _draws_needed("tie-noise draws", generator)
+            tie = torch.rand((B, A), generator=generator, device=pi.device)
+        new_prior = torch.where(valids, new_prior + tie * spec.tie_noise,
+                                new_prior)
+    # Pack the valid mask into the stored row (the INVALID_PRIOR sign).
+    new_prior = torch.where(valids, new_prior, INVALID_PRIOR)
+    nb_a, nb_p = T.next_best(new_prior)
+    tt.prior[slot * A:(slot + 1) * A] = new_prior.T
+    tt.nba[slot] = nb_a
+    tt.nbp[slot] = nb_p

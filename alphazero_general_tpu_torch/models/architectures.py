@@ -1,0 +1,181 @@
+"""Policy and value network — the port of
+alphazero_general_tpu/models/architectures.py (reference:
+alphazero/NNetArchitecture.py:36-162).
+
+Same topology as the JAX ResNet: a 3x3 conv stem with BatchNorm and ReLU,
+``depth`` pre-activation residual blocks, and 1x1-conv heads with ELU MLPs;
+the value head is a softmax over num_players + has_draw.
+
+Numerics follow the JAX package's ``compute_dtype``: parameters are float32,
+each conv and dense layer runs in the compute dtype (bfloat16 by default),
+BatchNorm normalises in float32 and rounds its output to the compute dtype
+(as flax's ``_normalize`` does), and both log-softmaxes are float32.
+
+Layout: activations are NCHW, PyTorch's habit. The JAX model flattens each
+head in NHWC order, so the heads here flatten in (H, W, C) order too, which
+keeps the converted dense weights as they are (utils/convert.py).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Norm(nn.Module):
+    """BatchNorm with running statistics, inference mode (flax
+    ``nn.BatchNorm(use_running_average=True)``, epsilon 1e-5):
+    ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias`` in float32,
+    rounded to the input's dtype.
+
+    Training-mode BatchNorm arrives with the train step in a later slice.
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "training-mode BatchNorm is not ported yet; call .eval()")
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.to(torch.float32) - self.running_mean.view(shape)) \
+            * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+
+class Conv(nn.Conv2d):
+    """Bias-free 'SAME' convolution whose float32 weight is cast to the
+    input's dtype for the product."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int):
+        super().__init__(c_in, c_out, kernel, padding=kernel // 2,
+                         bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
+class Dense(nn.Linear):
+    """Linear layer whose float32 parameters are cast to the input's
+    dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class ResidualBlock(nn.Module):
+    """Pre-activation residual block (NNetArchitecture.py:36-66)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.norm1 = Norm(channels)
+        self.conv1 = Conv(channels, channels, 3)
+        self.norm2 = Norm(channels)
+        self.conv2 = Conv(channels, channels, 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv1(F.relu(self.norm1(x)))
+        out = self.conv2(F.relu(self.norm2(out)))
+        return out + x
+
+
+class Mlp(nn.Module):
+    """ELU MLP head (NNetArchitecture.py:20-32)."""
+
+    def __init__(self, in_features: int, layer_sizes: Sequence[int],
+                 output_size: int):
+        super().__init__()
+        sizes = [in_features, *layer_sizes, output_size]
+        self.layers = nn.ModuleList(
+            Dense(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers[:-1]:
+            x = F.elu(layer(x))
+        return self.layers[-1](x)
+
+
+class ResNet(nn.Module):
+    """AlphaZero tower (NNetArchitecture.py:69-120).
+
+    Input: observations [B, C, H, W] float32. Output: (log-policy [B, A],
+    log-value [B, value_size]) in float32.
+    """
+
+    def __init__(self, obs_shape, action_size: int, value_size: int,
+                 num_channels: int = 32, depth: int = 4,
+                 value_head_channels: int = 16,
+                 policy_head_channels: int = 16,
+                 value_dense_layers: Sequence[int] = (512, 64),
+                 policy_dense_layers: Sequence[int] = (512, 256),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        c, h, w = obs_shape
+        self.dtype = dtype
+        self.stem_conv = Conv(c, num_channels, 3)
+        self.stem_norm = Norm(num_channels)
+        self.blocks = nn.ModuleList(
+            ResidualBlock(num_channels) for _ in range(depth))
+        self.value_conv = Conv(num_channels, value_head_channels, 1)
+        self.value_norm = Norm(value_head_channels)
+        self.value_mlp = Mlp(value_head_channels * h * w, value_dense_layers,
+                             value_size)
+        self.policy_conv = Conv(num_channels, policy_head_channels, 1)
+        self.policy_norm = Norm(policy_head_channels)
+        self.policy_mlp = Mlp(policy_head_channels * h * w,
+                              policy_dense_layers, action_size)
+
+    @staticmethod
+    def _flatten_hwc(x: torch.Tensor) -> torch.Tensor:
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+    def forward(self, obs: torch.Tensor):
+        x = obs.to(self.dtype)
+        x = F.relu(self.stem_norm(self.stem_conv(x)))
+        for block in self.blocks:
+            x = block(x)
+        v = self._flatten_hwc(self.value_norm(self.value_conv(x)))
+        v = self.value_mlp(v)
+        pi = self._flatten_hwc(self.policy_norm(self.policy_conv(x)))
+        pi = self.policy_mlp(pi)
+        return (F.log_softmax(pi.to(torch.float32), dim=-1),
+                F.log_softmax(v.to(torch.float32), dim=-1))
+
+
+def build_model(env, args) -> nn.Module:
+    """Model factory from args (NNetWrapper.py:111-117), in eval mode."""
+    if args.get("nnet_type", "resnet") != "resnet":
+        raise ValueError(f"nnet_type {args.nnet_type!r} is not ported yet")
+    if args.get("norm", "batchnorm") != "batchnorm":
+        raise ValueError(f"norm {args.norm!r} is not ported yet")
+    # TF32 off for both convolutions and matrix products. The default
+    # compute dtype, bfloat16, never uses TF32; float32 mode exists to match
+    # the JAX reference, which computes float32 in full float32, while cuDNN
+    # would run float32 convolutions in TF32 (about three decimal digits).
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = (torch.bfloat16 if args.get("compute_dtype", "bfloat16")
+             == "bfloat16" else torch.float32)
+    model = ResNet(
+        obs_shape=env.OBS_SHAPE,
+        action_size=env.ACTION_SIZE,
+        value_size=env.NUM_PLAYERS + int(env.HAS_DRAW),
+        num_channels=args.num_channels,
+        depth=args.depth,
+        value_head_channels=args.value_head_channels,
+        policy_head_channels=args.policy_head_channels,
+        value_dense_layers=tuple(args.value_dense_layers),
+        policy_dense_layers=tuple(args.policy_dense_layers),
+        dtype=dtype,
+    )
+    return model.eval()

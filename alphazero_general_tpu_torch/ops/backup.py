@@ -1,0 +1,133 @@
+"""Batched MCTS backup: the CUDA kernel ``csrc/backup.cu`` and its plain
+PyTorch version — the port of alphazero_general_tpu/ops/backup.py.
+
+Both update the game-minor ``[N, B]`` n / q / v columns IN PLACE (the JAX
+kernel returns new arrays; updating in place saves three column copies per
+simulation). ``values`` must already be terminal-resolved.
+
+:func:`backup_columns_` launches the kernel for CUDA tensors and runs
+:func:`backup_plain_` for CPU tensors; there is no other fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from alphazero_general_tpu_torch.mcts.tree import DRAW_VALUE, SearchSpec
+
+
+def backup_plain_(parent, player, leaf, value, max_depth, n, q, v,
+                  spec: SearchSpec) -> None:
+    """Plain PyTorch backup, one vectorised step for all games per loop
+    turn; the same function as the kernel. Updates n, q, v in place."""
+    N, B = parent.shape
+    dev = parent.device
+    games = torch.arange(B, device=dev)
+    V = value.shape[1]
+    maxd = torch.clamp(max_depth.to(torch.float32), min=1.0)
+    log_md = spec.log_min_discount
+
+    def value_at(p):
+        val = value[games, p.long()]
+        if spec.has_draw:
+            val = val + value[:, V - 1] / spec.num_players
+        return val
+
+    node = leaf.long()
+    i = torch.zeros(B, dtype=torch.int32, device=dev)
+    for _ in range(N):  # a path has fewer than N edges
+        # As in the kernel, a node or link out of range (only in a corrupted
+        # tree) stops the walk; ``row`` keeps the reads in range.
+        row = node.clamp(0, N - 1)
+        par = parent[row, games].long()
+        active = (node > 0) & (node < N) & (par >= 0) & (par < N)
+        if not bool(active.any()):
+            break
+        par = torch.where(active, par, 0)
+        val = value_at(player[par, games])
+        frac = i.to(torch.float32) / maxd
+        disc = torch.exp(frac * log_md)
+        disc = torch.where(val < DRAW_VALUE, 2.0 - disc, disc)
+        disc = torch.where(val == DRAW_VALUE, 1.0, disc)
+
+        n_node = n[row, games]
+        nf = n_node.to(torch.float32)
+        new_q = (q[row, games] * nf + val * disc) / (nf + 1.0)
+        new_v = torch.where(n_node == 0, value_at(player[row, games]),
+                            v[row, games])
+        # Finished games write their row back unchanged.
+        q[row, games] = torch.where(active, new_q, q[row, games])
+        v[row, games] = torch.where(active, new_v, v[row, games])
+        n[row, games] = n_node + active.to(torch.int32)
+        node = torch.where(active, par, node)
+        i = i + active.to(torch.int32)
+
+    root_v = value_at(player[0])
+    v[0] = torch.where(n[0] == 0, root_v, v[0])
+    n[0] += 1
+
+
+def _check(parent, player, leaf, value, max_depth, n, q, v, spec):
+    if parent.dim() != 2:
+        raise ValueError(f"parent must be [N, B], got {tuple(parent.shape)}")
+    N, B = parent.shape
+    want = {
+        "parent": (parent, torch.int32, (N, B)),
+        "player": (player, torch.int32, (N, B)),
+        "leaf": (leaf, torch.int32, (B,)),
+        "value": (value, torch.float32, (B, spec.value_size)),
+        "max_depth": (max_depth, torch.int32, (B,)),
+        "n": (n, torch.int32, (N, B)),
+        "q": (q, torch.float32, (N, B)),
+        "v": (v, torch.float32, (N, B)),
+    }
+    for name, (x, dtype, shape) in want.items():
+        if x.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, "
+                             f"got {tuple(x.shape)}")
+        if x.device != parent.device:
+            raise ValueError(f"{name} is on {x.device}, parent on "
+                             f"{parent.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return N, B
+
+
+def backup_columns_(parent, player, leaf, value, max_depth, n, q, v,
+                    spec: SearchSpec) -> None:
+    """Back ``value`` [B, V] up from ``leaf`` [B] to the root of every game,
+    updating n / q / v in place: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. Counts kernel launches in
+    ``backup_columns_.launches``."""
+    N, B = _check(parent, player, leaf, value, max_depth, n, q, v, spec)
+    device = parent.device
+    if device.type == "cpu":
+        backup_plain_(parent, player, leaf, value, max_depth, n, q, v, spec)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"backup runs on cuda or cpu, not {device}")
+    from alphazero_general_tpu_torch.ops.build import load_library
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.azg_backup(
+            parent.data_ptr(), player.data_ptr(), leaf.data_ptr(),
+            value.data_ptr(), max_depth.data_ptr(), n.data_ptr(),
+            q.data_ptr(), v.data_ptr(), N, B, spec.value_size,
+            spec.num_players, int(spec.has_draw), spec.log_min_discount,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"backup kernel launch failed: CUDA error {err}")
+    backup_columns_.launches += 1
+
+
+backup_columns_.launches = 0
+
+
+def backup_batched_t(tt, values, spec: SearchSpec) -> None:
+    """Backup on a game-minor TreeT, in place; ``values`` is [B, V]."""
+    backup_columns_(tt.parent, tt.player, tt.leaf, values, tt.max_depth,
+                    tt.n, tt.q, tt.v, spec)

@@ -1,0 +1,8 @@
+from alphazero_general_tpu_torch.selfplay.selfplay import (  # noqa: F401
+    MoveRecord,
+    SelfPlayConfig,
+    SelfPlayState,
+    init_selfplay,
+    make_move_fns,
+    move_step,
+)

@@ -1,0 +1,202 @@
+"""The CUDA kernels on the card: each against its plain PyTorch version, and
+a whole search on the card against the same search on the CPU.
+
+Every test here is marked ``gpu`` and skips, by a decision taken inside
+the test, where there is no CUDA device. This file imports neither JAX nor
+the JAX package, because the machine with the card has neither; run it
+there without tests/conftest.py (which imports JAX):
+
+    python -m pytest --noconftest -q -m gpu tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from alphazero_general_tpu_torch.envs import get_env
+from alphazero_general_tpu_torch.envs.core import state_items
+from alphazero_general_tpu_torch.mcts import search as S
+from alphazero_general_tpu_torch.mcts import tree as T
+from alphazero_general_tpu_torch.mcts.tree import NBP_NONE, SearchSpec
+from alphazero_general_tpu_torch.mcts.tree_t import init_tree_t
+from alphazero_general_tpu_torch.ops import backup as OB
+from alphazero_general_tpu_torch.ops import descend as OD
+
+COLUMNS = ("parent", "parent_action", "n", "q", "v", "edge_prior", "eany",
+           "nba", "nbp")
+SPEC_KW = dict(cpuct=1.25, fpu_reduction=0.2, min_discount=0.8,
+               add_root_noise=False, add_root_temp=False, num_players=2,
+               has_draw=True)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def edge_case_tree():
+    """Six hand-built games on N = 6 rows (row 5 is the sink):
+
+    0. an unvisited root (n == 0): the walk does not start;
+    1. a terminal root: the walk does not start;
+    2. two children with exactly equal scores and no unexpanded action left
+       (NBP_NONE): the lower row wins, then that child expands;
+    3. a child whose score exactly equals the unexpanded arm's: the
+       unexpanded action wins the tie;
+    4. the best child is terminal: the walk stops on it;
+    5. the best child is pending (n == 0): the walk stops on it;
+    plus junk in the sink row that must never count as a child.
+    """
+    N, G = 6, 6
+    parent = np.full((N, G), -1, np.int32)
+    pa = np.full((N, G), -1, np.int32)
+    n = np.zeros((N, G), np.int32)
+    q = np.zeros((N, G), np.float32)
+    v = np.zeros((N, G), np.float32)
+    ep = np.zeros((N, G), np.float32)
+    eany = np.zeros((N, G), np.float32)
+    nba = np.zeros((N, G), np.int32)
+    nbp = np.full((N, G), 3.0e38, np.float32)
+    n[0, 1:] = 4
+    eany[0, 1] = 1.0
+    # game 2: children rows 1 and 2 tie; the root has nothing unexpanded.
+    parent[1:3, 2] = 0
+    pa[1:3, 2] = [3, 5]
+    n[1:3, 2] = 2
+    q[1:3, 2] = 0.5
+    ep[1:3, 2] = 0.25
+    nbp[0, 2] = NBP_NONE
+    nba[1, 2], nbp[1, 2] = 6, 0.375
+    # game 3: child score 0.5 + 1.25*0.25*2/2 = 0.8125; unexpanded arm
+    # (0.75 - 0.5*sqrt(0.25)) + 1.25*0.125*2 = 0.8125: an exact tie.
+    parent[1, 3], pa[1, 3], n[1, 3] = 0, 2, 1
+    q[1, 3], ep[1, 3], v[0, 3] = 0.5, 0.25, 0.75
+    nba[0, 3], nbp[0, 3] = 4, 0.125
+    # games 4 and 5: one strong child, terminal resp. pending.
+    for g in (4, 5):
+        parent[1:3, g] = 0
+        pa[1:3, g] = [1, 0]
+        n[1:3, g] = [3, 1]
+        q[1:3, g] = [0.1, 0.9]
+        ep[1:3, g] = 0.5
+        nbp[0, g] = 0.01
+    eany[2, 4] = 1.0
+    n[2, 5] = 0
+    # The sink row carries junk links to the root, which must be ignored.
+    parent[N - 1], pa[N - 1], q[N - 1], n[N - 1] = 0, 6, 9.0, 1
+    return [parent, pa, n, q, v, ep, eany, nba, nbp]
+
+
+_RNG = np.random.default_rng(0)
+_PI_TAB = _RNG.dirichlet(np.ones(7), 4093).astype(np.float32)
+_V_TAB = _RNG.dirichlet(np.ones(3), 4093).astype(np.float32)
+_HASH_W = _RNG.integers(1, 4093, size=(2, 42))
+
+
+def _eval_fn(obs):
+    """Table lookup on an integer hash of the stone planes: bit-identical
+    policy and value rows on any device."""
+    dev = obs.device
+    stones = (obs[:, :2] > 0.5).reshape(obs.shape[0], 2, -1).long()
+    h = (stones * torch.from_numpy(_HASH_W).to(dev)).sum(dim=(1, 2)) % 4093
+    return (torch.from_numpy(_PI_TAB).to(dev)[h],
+            torch.from_numpy(_V_TAB).to(dev)[h])
+
+
+def _openings(batch, dev):
+    """Games advanced by up to 6 random legal moves (none can be over)."""
+    env = get_env("connect4")
+    rng = np.random.default_rng(1)
+    s = env.init(batch, "cpu")
+    for _ in range(6):
+        valid = env.valid_moves(s).numpy()
+        a = np.array([rng.choice(np.flatnonzero(v)) for v in valid])
+        nxt = env.step(s, torch.from_numpy(a))
+        keep = torch.from_numpy(rng.random(batch) < 0.7)
+        s = env.State(**{
+            k: torch.where(keep.reshape((-1,) + (1,) * (x.dim() - 1)),
+                           getattr(nxt, k), x)
+            for k, x in state_items(s).items()})
+    return env.State(**{k: x.to(dev) for k, x in state_items(s).items()})
+
+
+def _grown_tree(dev, batch=256, sims=24):
+    """A search without random draws (no root noise, no tie noise), so that
+    it is the same search on every device."""
+    env = get_env("connect4")
+    tt = init_tree_t(env, _openings(batch, dev), sims + 16, 3)
+    S.search(env, tt, SearchSpec(**dict(SPEC_KW, tie_noise=0.0)), _eval_fn,
+             sims)
+    return tt
+
+
+@pytest.mark.gpu
+def test_cuda_descend_matches_plain():
+    dev = _cuda()
+    tt = _grown_tree(dev)
+    grown = [getattr(tt, c) for c in COLUMNS]
+    edge = [torch.from_numpy(x).to(dev) for x in edge_case_tree()]
+    for cols, kw in ((grown, SPEC_KW), (edge, dict(SPEC_KW,
+                                                   fpu_reduction=0.5))):
+        spec = SearchSpec(**kw)
+        before = OD.descend_columns.launches
+        got = OD.descend_columns(*cols, spec)
+        torch.cuda.synchronize()
+        assert OD.descend_columns.launches == before + 1
+        want = OD.descend_plain(*cols, spec.cpuct, spec.fpu_reduction)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_cuda_backup_matches_plain():
+    dev = _cuda()
+    tt = _grown_tree(dev)
+    spec = SearchSpec(**SPEC_KW)
+    gen = torch.Generator(dev).manual_seed(1)
+    rows = torch.randint(0, 24, (tt.leaf.shape[0],), generator=gen,
+                         device=dev)
+    games = torch.arange(rows.shape[0], device=dev)
+    rows = torch.where(tt.parent[rows, games] >= 0, rows, 0).to(torch.int32)
+    for leaf in (tt.leaf, rows):
+        value = torch.softmax(torch.randn(leaf.shape[0], 3, generator=gen,
+                                          device=dev), -1)
+        value[:3] = torch.tensor([[0.5, 0.5, 0.0], [0.25, 0.25, 0.5],
+                                  [0.0, 0.0, 1.0]], device=dev)
+        k_nqv = [tt.n.clone(), tt.q.clone(), tt.v.clone()]
+        p_nqv = [tt.n.clone(), tt.q.clone(), tt.v.clone()]
+        args = (tt.parent, tt.player, leaf, value, tt.max_depth + 2)
+        OB.backup_columns_(*args, *k_nqv, spec)
+        torch.cuda.synchronize()
+        OB.backup_plain_(*args, *p_nqv, spec)
+        assert torch.equal(k_nqv[0], p_nqv[0])
+        for g, w in zip(k_nqv[1:], p_nqv[1:]):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_cuda_search_matches_cpu_search():
+    """The same search through the kernels and through the plain versions:
+    visit counts and tree links equal, values within 1e-6."""
+    dev = _cuda()
+    got, want = _grown_tree(dev), _grown_tree("cpu")
+    for name in ("n", "parent", "parent_action", "nba"):
+        assert torch.equal(getattr(got, name)[:-1].cpu(),
+                           getattr(want, name)[:-1]), name
+    for name in ("q", "v", "nbp"):
+        torch.testing.assert_close(getattr(got, name)[:-1].cpu(),
+                                   getattr(want, name)[:-1], rtol=1e-6,
+                                   atol=1e-6)
+    assert torch.equal(T.counts(got).cpu(), T.counts(want))
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_reject_bad_inputs():
+    dev = _cuda()
+    cols = [torch.from_numpy(x).to(dev) for x in edge_case_tree()]
+    spec = SearchSpec()
+    with pytest.raises(ValueError):  # not contiguous
+        OD.descend_columns(*(c.t().contiguous().t() for c in cols), spec)
+    with pytest.raises(ValueError):  # mixed devices
+        OD.descend_columns(cols[0].cpu(), *cols[1:], spec)

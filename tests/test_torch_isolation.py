@@ -1,0 +1,131 @@
+"""The port stands alone: it and chip_smoke.py import neither JAX nor the
+JAX package, chip_smoke.py refuses to run without a GPU, and its phases
+rehearse on the CPU at a tiny size."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "alphazero_general_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "alphazero_general_tpu")
+
+
+def _port_modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    return env
+
+
+def test_port_and_chip_smoke_import_with_jax_blocked():
+    mods = list(_port_modules()) + ["chip_smoke"]
+    code = "\n".join([
+        "import sys",
+        *(f"sys.modules[{m!r}] = None" for m in BLOCKED),
+        "import importlib",
+        f"for m in {mods!r}:",
+        "    importlib.import_module(m)",
+        "leaked = [m for m in sys.modules if m.split('.')[0] in "
+        f"{BLOCKED!r} and sys.modules[m] is not None]",
+        "assert not leaked, leaked",
+        "print('imported', len(" + repr(mods) + "))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert f"imported {len(mods)}" in out.stdout
+
+
+def _imported_names(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_port_source_imports_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for name in _imported_names(path):
+            root = name.split(".")[0]
+            assert root not in BLOCKED, f"{path.name} imports {name}"
+
+
+def test_chip_smoke_fails_without_a_gpu(tmp_path):
+    """On a host without CUDA the script exits non-zero with a clear
+    message and prints no result; alone in a directory, it fails too."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the check is for CPU-only hosts")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert '"ok"' not in out.stdout
+
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    alone = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                           env=env, capture_output=True, text=True,
+                           timeout=120)
+    assert alone.returncode != 0
+    assert '"ok"' not in alone.stdout
+
+
+def test_chip_smoke_phases_rehearse_on_cpu():
+    """The kernel, reference, self-play and breakdown phases at a tiny size
+    on the CPU, where every wrapper runs its plain version (so no launches
+    count)."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke as C
+    finally:
+        sys.path.remove(str(REPO))
+    from alphazero_general_tpu_torch.envs import get_env
+    from alphazero_general_tpu_torch.mcts.tree import SearchSpec
+    from alphazero_general_tpu_torch.models import NNetWrapper
+    from alphazero_general_tpu_torch.selfplay import SelfPlayConfig
+    from alphazero_general_tpu_torch.utils import get_args
+
+    env = get_env("connect4")
+    spec = SearchSpec()
+    net = NNetWrapper(env, get_args(num_channels=8, depth=2,
+                                    value_head_channels=4,
+                                    policy_head_channels=4,
+                                    value_dense_layers=[16],
+                                    policy_dense_layers=[16]), device="cpu")
+    errs, timing = C.kernel_phase(env, net.make_eval_fn(), spec, 8, 12,
+                                  (4, 11), "cpu", reps=1)
+    assert errs == {"descend": 0.0, "backup": 0.0}
+    C.reference_phase(env, "cpu", batch=8, sims=10)
+    cfg = SelfPlayConfig(sims_full=12, sims_fast=4, spec=spec)
+    sp = C.selfplay_phase(env, net.model, cfg, 8, C.CYCLE, "cpu")
+    assert sp["launches"] == {"descend": 0, "backup": 0}
+    records = C.kernel_records(errs, timing, sp["launches"], 8)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert [r["name"] for r in records] == ["descend", "backup"]
+    for r in records:
+        assert keys <= set(r)
+        assert (REPO / r["source"]).is_file()
+        assert r["bound_ms"] > 0
+    parts = C.breakdown_phase(env, net.make_eval_fn(), spec, 8, 4, "cpu")
+    assert set(parts["host_ms"]) == set(C.STAGES)
