@@ -16,36 +16,64 @@
 // and then the root takes its own-player v if n[root] == 0, and n[root] += 1.
 //
 // What bounds it on an H100: latency. A game touches only the rows on its
-// path (depth + 1 rows of parent, player, n, q, v: a few hundred bytes), so
-// the bytes the function must move are well under a megabyte at B = 2048 and
-// the launch and the dependent load chain (each step's row comes from the
-// previous step's parent load) set the time.
+// path (a few hundred bytes), so the bytes the function must move are well
+// under a megabyte at B = 2048 (under 0.1 microsecond at 3.35 TB/s), and
+// the launch and the chain of dependent loads set the time: each path
+// row is known only once the row below it has been read. Followed edge by
+// edge, a level costs two dependent round trips (parent[node], then
+// player[parent]) before its read-modify-write of n, q and v.
 //
-// What the design does about it: one thread per game follows its own chain
-// with no synchronisation; loads of the same row by neighbouring games are
-// coalesced when their paths share a row index. Nothing is staged in shared
-// memory because no row is read twice.
+// What this design does about it: each thread first walks its path,
+// following parent from the leaf with one dependent load per level, into a
+// register array of up to kChunk rows; then it starts the loads of
+// player[parent], n and q for the whole chunk together, computes the
+// updates in path order, and stores them. A path of d edges costs about
+// d + 1 round trips instead of 2d; a longer path takes further chunks. The
+// root's n and player, the leaf, max_depth and the value row are loaded
+// before the walk and arrive during it. Reading a whole chunk before
+// writing any of it is safe because the rows of a path are distinct (a
+// tree has no cycles; only a corrupted tree could repeat a row, and the
+// step cap only keeps such a walk finite), and the games' columns are
+// disjoint. Small blocks (the wrapper's ``threads``, 64 by default) spread
+// the games over more SMs.
 //
 // Arithmetic order matches the JAX kernel and the plain PyTorch version
 // (ops/backup.py); the library is compiled with --fmad=false so that
 // q * n + val * disc is not contracted into an FMA.
 
+#include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kChunk = 16;      // path rows held in registers at a time
+constexpr int kMaxValues = 8;   // value rows up to this size sit in registers
 
-__device__ __forceinline__ float value_at(const float* value_row, int p,
-                                          int value_size, int num_players,
-                                          bool has_draw) {
-  float val = value_row[p];
-  if (has_draw) {
-    val = val + value_row[value_size - 1] / static_cast<float>(num_players);
+// value[p] (+ value[draw] / num_players): the value of player p's side.
+struct Values {
+  const float* row;
+  float draw_share;  // value[V-1] / num_players, or 0 without a draw
+  bool has_draw;
+  float reg[kMaxValues];
+  int size;
+
+  __device__ float at(int p) const {
+    float raw;
+    if (size <= kMaxValues) {
+      raw = reg[0];
+#pragma unroll
+      for (int k = 1; k < kMaxValues; ++k) {
+        if (k == p) raw = reg[k];
+      }
+    } else {
+      raw = row[p];
+    }
+    return has_draw ? raw + draw_share : raw;
   }
-  return val;
-}
+};
 
 __global__ void backup_kernel(const int32_t* __restrict__ parent,
                               const int32_t* __restrict__ player,
@@ -59,55 +87,120 @@ __global__ void backup_kernel(const int32_t* __restrict__ parent,
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= batch) return;
   const size_t B = static_cast<size_t>(batch);
-  const float* value_row = value + static_cast<size_t>(b) * value_size;
-  const bool draw = has_draw != 0;
-  const float maxd = fmaxf(static_cast<float>(max_depth[b]), 1.0f);
 
+  // Independent loads first: they arrive while the path is followed.
   int node = leaf[b];
-  // A path has fewer than N edges. The cap and the range checks only guard
-  // a corrupted tree: it stops the walk instead of looping forever or
-  // reading outside the columns.
-  for (int i = 0; node > 0 && node < num_nodes && i < num_nodes; ++i) {
-    const size_t at = static_cast<size_t>(node) * B + b;
-    const int par = parent[at];
-    if (par < 0 || par >= num_nodes) break;
-    const int par_player = player[static_cast<size_t>(par) * B + b];
-    const float val =
-        value_at(value_row, par_player, value_size, num_players, draw);
-    const float frac = static_cast<float>(i) / maxd;
-    float disc = expf(frac * log_min_discount);
-    if (val < 0.5f) disc = 2.0f - disc;
-    if (val == 0.5f) disc = 1.0f;
-    const int n_node = n[at];
-    const float nf = static_cast<float>(n_node);
-    q[at] = (q[at] * nf + val * disc) / (nf + 1.0f);
-    if (n_node == 0) {
-      v[at] = value_at(value_row, player[at], value_size, num_players, draw);
+  const float maxd = fmaxf(static_cast<float>(max_depth[b]), 1.0f);
+  const int root_n = n[b];
+  const int root_player = player[b];
+  Values val_of;
+  val_of.row = value + static_cast<size_t>(b) * value_size;
+  val_of.size = value_size;
+  val_of.has_draw = has_draw != 0;
+#pragma unroll
+  for (int k = 0; k < kMaxValues; ++k) {
+    val_of.reg[k] = k < value_size ? val_of.row[k] : 0.0f;
+  }
+  val_of.draw_share =
+      val_of.has_draw
+          ? val_of.row[value_size - 1] / static_cast<float>(num_players)
+          : 0.0f;
+
+  // A path has fewer than N edges. The step cap and the range checks only
+  // guard a corrupted tree: they stop the walk instead of looping forever
+  // or reading outside the columns.
+  int i = 0;  // edges done
+  bool live = node > 0 && node < num_nodes;
+  while (live) {
+    // 1. Follow the path up to kChunk edges: one dependent load per edge.
+    int rows[kChunk];
+    int pars[kChunk];
+    int count = 0;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      rows[k] = 0;
+      pars[k] = 0;
+      if (live) {
+        const int par = parent[static_cast<size_t>(node) * B + b];
+        if (par >= 0 && par < num_nodes) {
+          rows[k] = node;
+          pars[k] = par;
+          count = k + 1;
+          node = par;
+          live = node > 0 && i + count < num_nodes;
+        } else {
+          live = false;
+        }
+      }
     }
-    n[at] = n_node + 1;
-    node = par;
+    // 2. The chunk's loads, all started together. Row k's own player is
+    //    player[pars[k - 1]] for k >= 1; only row 0's is loaded apart.
+    int par_player[kChunk];
+    int n_old[kChunk];
+    float q_old[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      par_player[k] = 0;
+      n_old[k] = 0;
+      q_old[k] = 0.0f;
+      if (k < count) {
+        const size_t at = static_cast<size_t>(rows[k]) * B + b;
+        par_player[k] = player[static_cast<size_t>(pars[k]) * B + b];
+        n_old[k] = n[at];
+        q_old[k] = q[at];
+      }
+    }
+    const int first_player =
+        count > 0 ? player[static_cast<size_t>(rows[0]) * B + b] : 0;
+    // 3. The updates, in path order, as the edge-by-edge walk makes them.
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      if (k < count) {
+        const size_t at = static_cast<size_t>(rows[k]) * B + b;
+        const float val = val_of.at(par_player[k]);
+        const float frac = static_cast<float>(i + k) / maxd;
+        float disc = expf(frac * log_min_discount);
+        if (val < 0.5f) disc = 2.0f - disc;
+        if (val == 0.5f) disc = 1.0f;
+        const float nf = static_cast<float>(n_old[k]);
+        q[at] = (q_old[k] * nf + val * disc) / (nf + 1.0f);
+        if (n_old[k] == 0) {
+          v[at] = val_of.at(k == 0 ? first_player
+                                   : par_player[k > 0 ? k - 1 : 0]);
+        }
+        n[at] = n_old[k] + 1;
+      }
+    }
+    i += count;
   }
   // Root visit (MCTS.pyx:289) and the root's own value on its first visit.
-  if (n[b] == 0) {
-    v[b] = value_at(value_row, player[b], value_size, num_players, draw);
-  }
-  n[b] += 1;
+  // No path row is the root, so the values loaded at the start still hold.
+  if (root_n == 0) v[b] = val_of.at(root_player);
+  n[b] = root_n + 1;
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). ``parent``/``player``/``n``/
 // ``q``/``v`` are contiguous [N, B] device columns, ``leaf``/``max_depth``
-// are [B], ``value`` is [B, value_size]; ``stream`` is a cudaStream_t.
-// n, q and v are updated in place. Returns the cudaError_t of the launch.
+// are [B], ``value`` is [B, value_size]; n, q and v are updated in place.
+// ``threads`` is the block size (a multiple of 32, at most 1024), ``device``
+// the CUDA device of the tensors and ``stream`` a cudaStream_t on it.
+// Returns the cudaError_t of switching the device or of the launch.
 extern "C" int azg_backup(const void* parent, const void* player,
                           const void* leaf, const void* value,
                           const void* max_depth, void* n, void* q, void* v,
                           int num_nodes, int batch, int value_size,
                           int num_players, int has_draw,
-                          float log_min_discount, void* stream) {
-  const int blocks = (batch + kThreads - 1) / kThreads;
-  backup_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                          float log_min_discount, int threads, int device,
+                          void* stream) {
+  if (threads <= 0 || threads > 1024 || threads % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  azg::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+  const int blocks = (batch + threads - 1) / threads;
+  backup_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(parent), static_cast<const int32_t*>(player),
       static_cast<const int32_t*>(leaf), static_cast<const float*>(value),
       static_cast<const int32_t*>(max_depth), static_cast<int32_t*>(n),

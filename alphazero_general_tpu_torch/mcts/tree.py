@@ -12,6 +12,7 @@ LAST axis of tree columns ([N, B]) and on the FIRST axis of per-game rows
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -55,7 +56,14 @@ class SearchSpec(NamedTuple):
     def log_min_discount(self) -> float:
         """``log(min_discount)`` rounded as the JAX backup kernel computes it
         (a float32 log of the float32 discount, floored at 1e-9)."""
-        return float(np.log(np.float32(max(self.min_discount, 1e-9))))
+        return _log_discount(self.min_discount)
+
+
+@functools.lru_cache(maxsize=None)
+def _log_discount(min_discount: float) -> float:
+    # Cached: the backup wrapper reads it at every launch, and numpy's
+    # float32 log costs microseconds of host time there.
+    return float(np.log(np.float32(max(min_discount, 1e-9))))
 
 
 def next_best(prior_row: torch.Tensor, p_star=None, a_star=None):

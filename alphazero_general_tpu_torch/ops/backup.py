@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 
 from alphazero_general_tpu_torch.mcts.tree import DRAW_VALUE, SearchSpec
+from alphazero_general_tpu_torch.ops.build import current_stream, \
+    load_library
 
 
 def backup_plain_(parent, player, leaf, value, max_depth, n, q, v,
@@ -67,58 +69,56 @@ def backup_plain_(parent, player, leaf, value, max_depth, n, q, v,
     n[0] += 1
 
 
-def _check(parent, player, leaf, value, max_depth, n, q, v, spec):
+_NAMES = ("parent", "player", "leaf", "value", "max_depth", "n", "q", "v")
+_DTYPES = (torch.int32, torch.int32, torch.int32, torch.float32, torch.int32,
+           torch.int32, torch.float32, torch.float32)
+#: Threads a block of the kernel, one game each. Blocks this small spread
+#: the 2048 games of a production batch over 32 SMs (PERF.md).
+THREADS = 64
+
+
+def _check(tensors: tuple, spec: SearchSpec) -> tuple:
+    """Raise on an input of the wrong type, shape or device, or one that is
+    not contiguous; returns (N, B)."""
+    parent = tensors[0]
     if parent.dim() != 2:
         raise ValueError(f"parent must be [N, B], got {tuple(parent.shape)}")
     N, B = parent.shape
-    want = {
-        "parent": (parent, torch.int32, (N, B)),
-        "player": (player, torch.int32, (N, B)),
-        "leaf": (leaf, torch.int32, (B,)),
-        "value": (value, torch.float32, (B, spec.value_size)),
-        "max_depth": (max_depth, torch.int32, (B,)),
-        "n": (n, torch.int32, (N, B)),
-        "q": (q, torch.float32, (N, B)),
-        "v": (v, torch.float32, (N, B)),
-    }
-    for name, (x, dtype, shape) in want.items():
+    column, row = (N, B), (B,)
+    shapes = (column, column, row, (B, spec.value_size), row, column, column,
+              column)
+    device = parent.device
+    for name, x, dtype, shape in zip(_NAMES, tensors, _DTYPES, shapes):
         if x.dtype != dtype:
             raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
-        if tuple(x.shape) != shape:
+        if x.shape != shape:
             raise ValueError(f"{name}: expected shape {shape}, "
                              f"got {tuple(x.shape)}")
-        if x.device != parent.device:
-            raise ValueError(f"{name} is on {x.device}, parent on "
-                             f"{parent.device}")
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, parent on {device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return N, B
 
 
 def backup_columns_(parent, player, leaf, value, max_depth, n, q, v,
-                    spec: SearchSpec) -> None:
+                    spec: SearchSpec, threads: int = THREADS) -> None:
     """Back ``value`` [B, V] up from ``leaf`` [B] to the root of every game,
-    updating n / q / v in place: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Counts kernel launches in
-    ``backup_columns_.launches``."""
-    N, B = _check(parent, player, leaf, value, max_depth, n, q, v, spec)
+    updating n / q / v in place: the CUDA kernel (``threads`` a block) for
+    CUDA tensors, the plain version for CPU tensors. Counts kernel launches
+    in ``backup_columns_.launches``."""
+    tensors = (parent, player, leaf, value, max_depth, n, q, v)
+    N, B = _check(tensors, spec)
     device = parent.device
     if device.type == "cpu":
-        backup_plain_(parent, player, leaf, value, max_depth, n, q, v, spec)
+        backup_plain_(*tensors, spec)
         return
     if device.type != "cuda":
         raise ValueError(f"backup runs on cuda or cpu, not {device}")
-    from alphazero_general_tpu_torch.ops.build import load_library
-
-    lib = load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.azg_backup(
-            parent.data_ptr(), player.data_ptr(), leaf.data_ptr(),
-            value.data_ptr(), max_depth.data_ptr(), n.data_ptr(),
-            q.data_ptr(), v.data_ptr(), N, B, spec.value_size,
-            spec.num_players, int(spec.has_draw), spec.log_min_discount,
-            stream)
+    err = load_library().azg_backup(
+        *(x.data_ptr() for x in tensors), N, B, spec.value_size,
+        spec.num_players, int(spec.has_draw), spec.log_min_discount, threads,
+        device.index, current_stream(device.index))
     if err != 0:
         raise RuntimeError(f"backup kernel launch failed: CUDA error {err}")
     backup_columns_.launches += 1

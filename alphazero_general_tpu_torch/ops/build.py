@@ -25,6 +25,8 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -40,8 +42,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: C signature of every entry point: (argtypes, restype).
 SIGNATURES = {
-    "azg_descend": ([_P] * 9 + [_I, _I, _F, _F] + [_P] * 5 + [_P], _I),
-    "azg_backup": ([_P] * 8 + [_I] * 5 + [_F] + [_P], _I),
+    "azg_descend": ([_P] * 9 + [_I, _I, _I, _F, _F, _P, _P, _I, _P], _I),
+    "azg_backup": ([_P] * 8 + [_I] * 5 + [_F, _I, _I, _P], _I),
 }
 
 
@@ -70,9 +72,9 @@ def _sources():
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libazg_kernels-{h.hexdigest()[:16]}.so"
@@ -112,6 +114,13 @@ def build_library() -> BuildResult:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(tmp_lib, lib)  # atomic: concurrent builders never see half
     return BuildResult(lib, "\n".join(logs), time.perf_counter() - t0)
+
+
+def current_stream(device_index: int) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on a device, as
+    an int: the call that ``torch.cuda.current_stream(...).cuda_stream``
+    makes, without building a Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 @functools.lru_cache(maxsize=None)

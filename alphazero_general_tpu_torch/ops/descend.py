@@ -8,7 +8,9 @@ prior rows: the best unexpanded action of a node is its rank-walk pointer
 action-space size. It draws no randomness.
 
 :func:`descend_columns` launches the kernel for CUDA tensors and runs
-:func:`descend_plain` for CPU tensors; there is no other fallback.
+:func:`descend_plain` for CPU tensors; there is no other fallback. The
+kernel stages each game's parent column in shared memory, so it takes trees
+of up to ``MAX_NODES`` rows; a larger CUDA tree raises ValueError.
 """
 
 from __future__ import annotations
@@ -16,12 +18,23 @@ from __future__ import annotations
 import torch
 
 from alphazero_general_tpu_torch.mcts.tree import SearchSpec, UNVISITED
+from alphazero_general_tpu_torch.ops.build import current_stream, \
+    load_library
 
 NEG_INF = -3.0e38
 
-_INT_COLUMNS = ("parent", "parent_action", "n", "nba")
 _COLUMN_NAMES = ("parent", "parent_action", "n", "q", "v", "edge_prior",
                  "eany", "nba", "nbp")
+_DTYPES = (torch.int32, torch.int32, torch.int32, torch.float32,
+           torch.float32, torch.float32, torch.float32, torch.int32,
+           torch.float32)
+#: Games a block of the kernel takes, largest first (one warp each); the
+#: kernel is built for each of them (csrc/descend.cu).
+GAMES_PER_BLOCK = (8, 4, 2, 1)
+#: Shared memory one block may use on an H100 (227 KB).
+SMEM_PER_BLOCK = 232448
+#: The largest N the kernel takes (one game a block): 58,081 rows.
+MAX_NODES = SMEM_PER_BLOCK // 4 - 32 + 1
 
 
 def _sum_rows_in_order(x: torch.Tensor) -> torch.Tensor:
@@ -91,13 +104,15 @@ def descend_plain(parent, parent_action, n, q, v, edge_prior, eany, nba,
     return node.to(torch.int32), action, child, depth, p_sel
 
 
-def _check_columns(cols: dict) -> tuple:
-    shape = cols["parent"].shape
-    device = cols["parent"].device
+def _check_columns(cols: tuple) -> tuple:
+    """Raise on a column of the wrong type, shape or device, or one that is
+    not contiguous; returns (N, B)."""
+    parent = cols[0]
+    shape = parent.shape
+    device = parent.device
     if len(shape) != 2 or shape[0] < 2:
         raise ValueError(f"tree columns must be [N >= 2, B], got {shape}")
-    for name, x in cols.items():
-        want = torch.int32 if name in _INT_COLUMNS else torch.float32
+    for name, x, want in zip(_COLUMN_NAMES, cols, _DTYPES):
         if x.dtype != want:
             raise TypeError(f"{name}: expected {want}, got {x.dtype}")
         if x.shape != shape:
@@ -107,7 +122,28 @@ def _check_columns(cols: dict) -> tuple:
             raise ValueError(f"{name} is on {x.device}, parent on {device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return shape, device
+    return shape
+
+
+def staged_bytes(num_nodes: int, games: int) -> int:
+    """Shared memory of one block of the kernel: the staged parent rows
+    0..N-2 of ``games`` games and a list of 32 child rows per game (as
+    ``smem_bytes`` in csrc/descend.cu)."""
+    return 4 * games * (num_nodes - 1 + 32)
+
+
+def games_per_block(num_nodes: int) -> int:
+    """The most games a block of the kernel can take for trees of
+    ``num_nodes`` rows: the largest of ``GAMES_PER_BLOCK`` whose staged
+    rows fit in ``SMEM_PER_BLOCK``. Raises ValueError for trees too large
+    even for one game a block."""
+    for games in GAMES_PER_BLOCK:
+        if staged_bytes(num_nodes, games) <= SMEM_PER_BLOCK:
+            return games
+    raise ValueError(
+        f"trees of {num_nodes} rows need {staged_bytes(num_nodes, 1)} bytes "
+        f"of shared memory per game, more than the {SMEM_PER_BLOCK} a block "
+        f"may use (at most {MAX_NODES} rows)")
 
 
 def descend_columns(parent, parent_action, n, q, v, edge_prior, eany, nba,
@@ -118,30 +154,25 @@ def descend_columns(parent, parent_action, n, q, v, edge_prior, eany, nba,
 
     Returns (node, action, child, depth) int32[B] and p_sel float32[B].
     """
-    cols = dict(zip(_COLUMN_NAMES, (parent, parent_action, n, q, v,
-                                    edge_prior, eany, nba, nbp)))
-    (N, B), device = _check_columns(cols)
+    cols = (parent, parent_action, n, q, v, edge_prior, eany, nba, nbp)
+    N, B = _check_columns(cols)
+    device = parent.device
     if device.type == "cpu":
-        return descend_plain(parent, parent_action, n, q, v, edge_prior,
-                             eany, nba, nbp, spec.cpuct, spec.fpu_reduction)
+        return descend_plain(*cols, spec.cpuct, spec.fpu_reduction)
     if device.type != "cuda":
         raise ValueError(f"descend runs on cuda or cpu, not {device}")
-    from alphazero_general_tpu_torch.ops.build import load_library
-
-    lib = load_library()
-    outs = [torch.empty(B, dtype=torch.int32, device=device)
-            for _ in range(4)]
+    games = games_per_block(N)
+    out = torch.empty((4, B), dtype=torch.int32, device=device)
     p_sel = torch.empty(B, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.azg_descend(
-            *(x.data_ptr() for x in cols.values()), N, B, spec.cpuct,
-            spec.fpu_reduction, *(o.data_ptr() for o in outs),
-            p_sel.data_ptr(), stream)
+    err = load_library().azg_descend(
+        *(x.data_ptr() for x in cols), N, B, games, spec.cpuct,
+        spec.fpu_reduction, out.data_ptr(), p_sel.data_ptr(), device.index,
+        current_stream(device.index))
     if err != 0:
         raise RuntimeError(f"descend kernel launch failed: CUDA error {err}")
     descend_columns.launches += 1
-    return (*outs, p_sel)
+    node, action, child, depth = out
+    return node, action, child, depth, p_sel
 
 
 descend_columns.launches = 0

@@ -12,10 +12,14 @@ Phases, each printed with its seconds; the first failure exits non-zero:
 3. kernels: during a full-width 200-simulation search and a 40-simulation
    one (connect4, 2048 games, random 128x8 ResNet; N = 203 and 43 tree
    rows), hold each kernel against its plain PyTorch version on the same
-   tree snapshot, and time both: the kernel's device time from
-   torch.profiler (with L2 flushed before each launch, and back to back
-   with the inputs left in L2), each wrapper call and the plain version
-   with CUDA events.
+   tree snapshot, bit for bit, and time both: the kernel's device time
+   from torch.profiler (with L2 flushed before each launch, and back to
+   back with the inputs left in L2; the backup also at each block size of
+   ``BACKUP_THREADS``), each wrapper call and the plain version with CUDA
+   events, and the host's time per wrapper call by the host clock alone.
+   Then, on seeded random trees of every size in ``RANDOM_NODES`` and
+   batch in ``RANDOM_BATCHES`` (ragged, and a tree large enough to force
+   fewer games a descend block), both kernels again, bit for bit.
 4. reference: a small whole search on the card against the same search on
    the CPU (plain versions), visit counts equal.
 5. self-play: 4 moves (fast, fast, fast, full) of the production config
@@ -51,6 +55,9 @@ from alphazero_general_tpu_torch.selfplay import (
     SelfPlayConfig, init_selfplay, make_move_fns,
 )
 from alphazero_general_tpu_torch.utils import get_args
+from alphazero_general_tpu_torch.utils.random_tree import (
+    DESCEND_COLUMNS, random_tree,
+)
 
 # The production connect4 config of bench.py:38-51 (the reference's
 # envs/connect4/train.py): 2048 games, 200 full / 40 fast simulations at a
@@ -75,8 +82,20 @@ F32_OPS_PER_S = 67e12
 #: the 50 MB L2, as the network's passes do between launches in a search.
 L2_FLUSH_BYTES = 256 * 2**20
 
+#: Tolerance of the reference phase (a search on the card against the same
+#: search on the CPU: the CPU's float arithmetic may round otherwise).
 TOL_FLOAT = 1e-6
-TOL_TIE = 1e-5
+#: Random trees on which both kernels are held against their plain versions
+#: (utils/random_tree.py): every tree size from the smallest to one that
+#: forces fewer than 8 games a descend block (N = 7300: 4), and batches
+#: that are a multiple of the block, ragged (1000 is not a multiple of 64)
+#: or too small for the 16-byte staging loads (7).
+RANDOM_NODES = (2, 43, 2048, 7300)
+RANDOM_BATCHES = (2048, 1000, 7)
+#: Block sizes of the backup timed in the kernel phase.
+BACKUP_THREADS = (32, 64, 128)
+#: Wrapper calls timed by the host clock alone, with no sync among them.
+HOST_CALLS = 1000
 
 
 class SmokeFailure(RuntimeError):
@@ -117,6 +136,20 @@ def time_ms(fn, reps: int, device) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def host_ms(fn, calls: int, device) -> float:
+    """Host milliseconds per call of ``fn``, by the host clock over
+    ``calls`` calls with no sync among them: what a wrapper costs the host
+    to check its inputs and enqueue its kernel, without the device."""
+    fn()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    sync(device)
+    return dt * 1e3 / calls
+
+
 def _device_kernels(prof):
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -150,6 +183,14 @@ def kernel_ms(fn, reps: int, device, kernel: str,
     check(count == reps, f"profiler saw {count} launches of {kernel}, "
                          f"expected {reps}")
     return sum(e.self_device_time_total for e in hits) / count / 1e3
+
+
+def launch_floor_ms(device, reps: int = 50) -> float:
+    """Device milliseconds of about the smallest kernel there is, a fill of
+    one int32 (torch.profiler): no kernel launched on this card takes less,
+    whatever its bound."""
+    one = torch.zeros(1, dtype=torch.int32, device=device)
+    return kernel_ms(lambda: one.fill_(1), reps, device, "FillFunctor")
 
 
 # --------------------------------------------------------------------------
@@ -237,75 +278,45 @@ def _descend_inputs(tt):
             tt.eany, tt.nba, tt.nbp)
 
 
-def _min_tie_gap(cols, game: int, spec) -> float:
-    """Smallest gap between the two best candidate scores at any step of
-    the plain walk of ``game`` (float64, host): how close the walk came to
-    a tie that rounding could flip."""
-    parent, pa, n, q, v, ep, eany, nba, nbp = (
-        c[:, game].double().cpu().numpy() for c in cols)
-    N = parent.shape[0]
-    node, gap = 0, np.inf
-    for _ in range(N):
-        kids = [r for r in range(N - 1) if parent[r] == node]
-        sqrt_n = np.sqrt(n[node])
-        child_scores = [q[r] + spec.cpuct * ep[r] * sqrt_n / (1 + n[r])
-                        for r in kids]
-        cand = list(child_scores)
-        if nbp[node] >= 0:
-            fpu = v[node] - spec.fpu_reduction * np.sqrt(
-                max(sum(ep[r] for r in kids), 0.0))
-            cand.append(fpu + spec.cpuct * nbp[node] * sqrt_n)
-        if len(cand) >= 2:
-            top = sorted(cand, reverse=True)
-            gap = min(gap, top[0] - top[1])
-        if not child_scores or (nbp[node] >= 0
-                                and max(child_scores) <= cand[-1]):
-            break
-        best = kids[int(np.argmax(child_scores))]
-        if eany[best] > 0.5 or n[best] == 0:
-            break
-        node = best
-    return gap
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (float32 compared as its int32 bits, so -0.0 and
+    0.0 differ and equal NaNs agree)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
 
 
-def compare_descend(tt, spec) -> float:
-    """Kernel against plain on one snapshot; returns the max abs p_sel
-    error. Integer outputs must be equal, except at near-ties."""
-    cols = [c.clone() for c in _descend_inputs(tt)]
+def compare_descend(cols, spec, where: str) -> float:
+    """Kernel against plain on one set of [N, B] columns: every output
+    equal bit for bit (the kernel is exact by construction). Returns the
+    max abs p_sel error, 0.0."""
     got = OD.descend_columns(*cols, spec)
     sync(cols[0].device)
     want = OD.descend_plain(*cols, spec.cpuct, spec.fpu_reduction)
-    bad = torch.zeros_like(got[0], dtype=torch.bool)
-    for g, w in zip(got[:4], want[:4]):
-        bad |= g != w
-    games = bad.nonzero().flatten().tolist()
-    for game in games:
-        gap = _min_tie_gap(cols, game, spec)
-        log(f"  descend mismatch game {game}: kernel "
-            f"{[int(x[game]) for x in got[:4]]} plain "
-            f"{[int(x[game]) for x in want[:4]]}; top-two gap {gap:.3g}")
-        check(gap <= TOL_TIE, f"descend disagrees on game {game} with a "
-                              f"score gap {gap} > {TOL_TIE}")
-    ok = ~bad
-    err = (got[4][ok] - want[4][ok]).abs().max().item() if ok.any() else 0.0
-    check(err <= TOL_FLOAT, f"descend p_sel error {err} > {TOL_FLOAT}")
-    return err
+    for name, g, w in zip(("node", "action", "child", "depth", "p_sel"),
+                          got, want):
+        bad = (g.view(torch.int32) != w.view(torch.int32)).nonzero()
+        if len(bad):
+            game = int(bad[0, 0])
+            raise SmokeFailure(
+                f"descend {name} disagrees on {len(bad)} games {where}; "
+                f"game {game}: kernel {[float(x[game]) for x in got]} plain "
+                f"{[float(x[game]) for x in want]}")
+    return (got[4] - want[4]).abs().max().item()
 
 
-def compare_backup(tt, values, spec) -> float:
-    """Kernel against plain on one snapshot; returns the max abs q/v
-    error. Visit counts must be equal."""
-    args = (tt.parent, tt.player, tt.leaf, values, tt.max_depth)
-    k_cols = [tt.n.clone(), tt.q.clone(), tt.v.clone()]
-    p_cols = [tt.n.clone(), tt.q.clone(), tt.v.clone()]
+def compare_backup(args, nqv, spec, where: str) -> float:
+    """Kernel against plain from the same n, q, v: visit counts equal and
+    q, v equal bit for bit. Returns the max abs q/v error, 0.0."""
+    k_cols = [x.clone() for x in nqv]
+    p_cols = [x.clone() for x in nqv]
     OB.backup_columns_(*args, *k_cols, spec)
-    sync(tt.n.device)
+    sync(nqv[0].device)
     OB.backup_plain_(*args, *p_cols, spec)
-    check(torch.equal(k_cols[0], p_cols[0]), "backup visit counts disagree")
-    err = max((k_cols[1] - p_cols[1]).abs().max().item(),
-              (k_cols[2] - p_cols[2]).abs().max().item())
-    check(err <= TOL_FLOAT, f"backup q/v error {err} > {TOL_FLOAT}")
-    return err
+    for name, g, w in zip("nqv", k_cols, p_cols):
+        check(bits_equal(g, w), f"backup {name} disagrees {where}")
+    return max((k_cols[1] - p_cols[1]).abs().max().item(),
+               (k_cols[2] - p_cols[2]).abs().max().item())
 
 
 def _path_lengths(tt) -> np.ndarray:
@@ -360,6 +371,7 @@ def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
     fresh-tree search, and their times and the bytes their work needs at
     the last snapshot."""
     gen = torch.Generator(device).manual_seed(SEED)
+    host_calls = HOST_CALLS if torch.device(device).type == "cuda" else reps
     roots = random_openings(env, batch, 6, gen, device)
     tt = init_tree_t(env, roots, sims + 2, spec.value_size)
     S._simulate_step_t(env, tt, spec, eval_fn, root_adjust=True, slot=0,
@@ -371,9 +383,11 @@ def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
             S._simulate_step_t(env, tt, spec, eval_fn, root_adjust=False,
                                slot=slot, generator=gen)
             continue
-        errs["descend"] = max(errs["descend"], compare_descend(tt, spec))
+        cols = _descend_inputs(tt)
+        where = f"at N={tt.parent.shape[0]}, B={batch}, after {slot} sims"
+        errs["descend"] = max(errs["descend"],
+                              compare_descend(cols, spec, where))
         if slot == snapshots[-1]:
-            cols = _descend_inputs(tt)
             walk = OD.descend_columns(*cols, spec)
             launch = lambda: OD.descend_columns(*cols, spec)  # noqa: E731
             timing["descend"] = dict(
@@ -381,33 +395,70 @@ def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
                              flush_l2=True),
                 ms_l2_warm=kernel_ms(launch, reps, device, "descend_kernel"),
                 call_ms=time_ms(launch, reps, device),
+                host_ms=host_ms(launch, host_calls, device),
                 plain_ms=time_ms(lambda: OD.descend_plain(
                     *cols, spec.cpuct, spec.fpu_reduction), 3, device),
                 N=tt.parent.shape[0], depth_sum=int(walk[3].sum().item()),
+                depth_max=int(walk[3].max().item()),
                 bytes=_descend_bytes(cols, walk))
         values = S._leaf_step_t(env, tt, spec, eval_fn, False, slot, False,
                                 gen)
-        errs["backup"] = max(errs["backup"], compare_backup(tt, values,
-                                                            spec))
+        args = (tt.parent, tt.player, tt.leaf, values, tt.max_depth)
+        errs["backup"] = max(errs["backup"], compare_backup(
+            args, (tt.n, tt.q, tt.v), spec, where))
         if slot == snapshots[-1]:
-            args = (tt.parent, tt.player, tt.leaf, values, tt.max_depth)
             scratch = [tt.n.clone(), tt.q.clone(), tt.v.clone()]
-            launch = lambda: OB.backup_columns_(  # noqa: E731
-                *args, *scratch, spec)
+            paths = _path_lengths(tt)
+
+            def launch(threads=OB.THREADS):
+                OB.backup_columns_(*args, *scratch, spec, threads=threads)
+
             timing["backup"] = dict(
                 ms=kernel_ms(launch, reps, device, "backup_kernel",
                              flush_l2=True),
                 ms_l2_warm=kernel_ms(launch, reps, device, "backup_kernel"),
                 call_ms=time_ms(launch, reps, device),
+                host_ms=host_ms(launch, host_calls, device),
                 plain_ms=time_ms(lambda: OB.backup_plain_(
                     *args, *scratch, spec), 3, device),
-                path_sum=int(_path_lengths(tt).sum()))
+                ms_by_threads={t: kernel_ms(
+                    lambda: launch(t), reps, device, "backup_kernel",
+                    flush_l2=True) for t in BACKUP_THREADS},
+                path_sum=int(paths.sum()), path_max=int(paths.max()))
         OB.backup_batched_t(tt, values, spec)
         log(f"  snapshot after {slot} sims: descend and backup agree "
             f"(max errors {errs['descend']:.3g}, {errs['backup']:.3g})")
     check(torch.equal(tt.n[0], torch.full_like(tt.n[0], sims)),
           "root visits after the kernel-phase search != sims")
     return errs, timing
+
+
+def random_tree_phase(spec, device, nodes=RANDOM_NODES,
+                      batches=RANDOM_BATCHES):
+    """Both kernels against their plain versions, bit for bit, on seeded
+    random trees (utils/random_tree.py) of every size in ``nodes`` and
+    every game count in ``batches``, with a discount below 1 so that the
+    backup's exp is exercised. Returns the max abs errors."""
+    spec = spec._replace(min_discount=0.8)
+    errs = {"descend": 0.0, "backup": 0.0}
+    for N in nodes:
+        for B in batches:
+            tree = {k: torch.from_numpy(x).to(device)
+                    for k, x in random_tree(N, B, seed=SEED + N * 7 + B,
+                                            num_players=spec.num_players,
+                                            has_draw=spec.has_draw).items()}
+            where = f"on a random tree, N={N}, B={B}"
+            cols = [tree[name] for name, _ in DESCEND_COLUMNS]
+            errs["descend"] = max(errs["descend"],
+                                  compare_descend(cols, spec, where))
+            args = [tree[k] for k in ("parent", "player", "leaf", "value",
+                                      "max_depth")]
+            errs["backup"] = max(errs["backup"], compare_backup(
+                args, [tree[k] for k in "nqv"], spec, where))
+            log(f"  random trees N={N} (games per descend block "
+                f"{OD.games_per_block(N)}), B={B}: descend and backup "
+                "equal bit for bit")
+    return errs
 
 
 def reference_phase(env, device, batch: int = 256, sims: int = 64):
@@ -611,7 +662,8 @@ def kernel_bounds(timing, batch: int) -> dict:
 def kernel_records(errs, timing, launches, batch: int):
     """The per-kernel JSON records. ``ms`` is the device time of one launch
     with L2 flushed before it, on the snapshot the bound is computed from;
-    ``ms_l2_warm`` the same launch back to back with its inputs in L2."""
+    ``ms_l2_warm`` the same launch back to back with its inputs in L2;
+    ``host_ms`` the host's time per wrapper call."""
     bounds = kernel_bounds(timing, batch)
     out = []
     for name, src, replaces in (
@@ -625,7 +677,8 @@ def kernel_records(errs, timing, launches, batch: int):
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "max_err": errs[name],
             "ms": t["ms"], "ms_l2_warm": t["ms_l2_warm"],
-            "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+            "call_ms": t["call_ms"], "host_ms": t["host_ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             "library_ms": None, "N": timing["descend"]["N"], "B": batch,
         })
@@ -651,6 +704,8 @@ def main() -> int:
     net = NNetWrapper(env, args, device=device)
 
     t0 = time.perf_counter()
+    log(f"  a one-element fill: {launch_floor_ms(device):.4f} ms of device "
+        "time per launch (the least a kernel takes)")
     errs = {"descend": 0.0, "backup": 0.0}
     timings = {}
     for sims in (SIMS_FULL, SIMS_FAST):
@@ -662,14 +717,25 @@ def main() -> int:
             log(f"  {k} at B={GAMES}, N={t['descend']['N']}: "
                 f"{t[k]['ms']:.4f} ms of device time per launch with L2 "
                 f"flushed, {t[k]['ms_l2_warm']:.4f} ms back to back, "
-                f"{t[k]['call_ms']:.4f} ms per wrapper call, plain "
+                f"{t[k]['call_ms']:.4f} ms per wrapper call, "
+                f"{t[k]['host_ms']:.4f} ms of host time per call, plain "
                 f"{t[k]['plain_ms']:.2f} ms; bound {bounds[k][0]:.6f} ms "
                 f"({bounds[k][1]})")
+        log("  backup with L2 flushed by threads a block: " + ", ".join(
+            f"{th}: {ms:.4f} ms"
+            for th, ms in t["backup"]["ms_by_threads"].items()))
         log(f"  descend needs {t['descend']['bytes']:,} bytes (by element) "
-            f"over {t['descend']['depth_sum']:,} walk steps; backup walks "
-            f"{t['backup']['path_sum']:,} path edges")
+            f"over {t['descend']['depth_sum']:,} walk steps (deepest walk "
+            f"{t['descend']['depth_max']}); backup walks "
+            f"{t['backup']['path_sum']:,} path edges (longest path "
+            f"{t['backup']['path_max']})")
     timing = timings[SIMS_FULL]
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    e = random_tree_phase(spec, device)
+    errs = {k: max(errs[k], e[k]) for k in errs}
+    log(f"phase random trees: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     reference_phase(env, device)

@@ -21,6 +21,7 @@ from alphazero_general_tpu_torch.mcts.tree import NBP_NONE, SearchSpec
 from alphazero_general_tpu_torch.mcts.tree_t import init_tree_t
 from alphazero_general_tpu_torch.ops import backup as OB
 from alphazero_general_tpu_torch.ops import descend as OD
+from alphazero_general_tpu_torch.utils.random_tree import random_tree
 
 COLUMNS = ("parent", "parent_action", "n", "q", "v", "edge_prior", "eany",
            "nba", "nbp")
@@ -200,3 +201,51 @@ def test_cuda_wrappers_reject_bad_inputs():
         OD.descend_columns(*(c.t().contiguous().t() for c in cols), spec)
     with pytest.raises(ValueError):  # mixed devices
         OD.descend_columns(cols[0].cpu(), *cols[1:], spec)
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,B", [(2, 2048), (43, 1000), (43, 1004),
+                                 (203, 7), (2048, 2048), (7300, 7)])
+def test_cuda_kernels_match_plain_on_random_trees(N, B):
+    """Both kernels bit for bit against their plain versions on random
+    trees: ragged batches (the last descend block part empty, with 16-byte
+    staging loads at B = 1004 and scalar ones at B = 7), a tree that needs
+    more than 48 KB of shared memory (N = 2048) and one that forces 4 games
+    a descend block (N = 7300)."""
+    dev = _cuda()
+    tree = {k: torch.from_numpy(x).to(dev)
+            for k, x in random_tree(N, B, seed=N + B).items()}
+    spec = SearchSpec(**SPEC_KW)
+    cols = [tree[c] for c in COLUMNS]
+    got = OD.descend_columns(*cols, spec)
+    torch.cuda.synchronize()
+    want = OD.descend_plain(*cols, spec.cpuct, spec.fpu_reduction)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+    args = [tree[k] for k in ("parent", "player", "leaf", "value",
+                              "max_depth")]
+    k_nqv = [tree[k].clone() for k in "nqv"]
+    p_nqv = [tree[k].clone() for k in "nqv"]
+    OB.backup_columns_(*args, *k_nqv, spec)
+    torch.cuda.synchronize()
+    OB.backup_plain_(*args, *p_nqv, spec)
+    for g, w in zip(k_nqv, p_nqv):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.gpu
+def test_cuda_descend_raises_for_trees_too_large_to_stage():
+    """A CUDA tree gets the kernel or an exception, never the plain
+    version."""
+    dev = _cuda()
+    N = OD.MAX_NODES + 1
+    cols = [torch.from_numpy(x).to(dev) for x in edge_case_tree()]
+    big = [torch.zeros((N, 6), dtype=c.dtype, device=dev) for c in cols]
+    before = OD.descend_columns.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        OD.descend_columns(*big, SearchSpec())
+    assert OD.descend_columns.launches == before

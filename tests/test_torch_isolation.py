@@ -115,13 +115,16 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     errs, timing = C.kernel_phase(env, net.make_eval_fn(), spec, 8, 12,
                                   (4, 11), "cpu", reps=1)
     assert errs == {"descend": 0.0, "backup": 0.0}
+    assert C.random_tree_phase(spec, "cpu", nodes=(2, 40),
+                               batches=(9,)) == errs
     C.reference_phase(env, "cpu", batch=8, sims=10)
     cfg = SelfPlayConfig(sims_full=12, sims_fast=4, spec=spec)
     sp = C.selfplay_phase(env, net.model, cfg, 8, C.CYCLE, "cpu")
     assert sp["launches"] == {"descend": 0, "backup": 0}
     records = C.kernel_records(errs, timing, sp["launches"], 8)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "host_ms"}
     assert [r["name"] for r in records] == ["descend", "backup"]
     for r in records:
         assert keys <= set(r)

@@ -2,7 +2,8 @@
 
 The plain PyTorch versions (what a CPU tensor runs) are held against the
 JAX kernels in interpret mode on TreeT snapshots taken part-way through a
-JAX search, and on hand-built edge cases. Integer outputs must be equal;
+JAX search, on seeded random trees (utils/random_tree.py: tiny and ragged
+shapes, long chains, junk in the sink row), and on hand-built edge cases. Integer outputs must be equal;
 floats agree within rtol 1e-6, atol 1e-7 (the exp of the backup's discount
 may round differently in the last place). The CUDA kernels themselves are
 held against the plain versions by the ``gpu`` tests of test_torch_cuda.py,
@@ -24,6 +25,7 @@ from alphazero_general_tpu.ops.descend import descend_batched_t as j_descend_t
 from alphazero_general_tpu_torch.mcts.tree import SearchSpec
 from alphazero_general_tpu_torch.ops import backup as OB
 from alphazero_general_tpu_torch.ops import descend as OD
+from alphazero_general_tpu_torch.utils.random_tree import random_tree
 from test_torch_cuda import COLUMNS, edge_case_tree
 
 RTOL, ATOL = 1e-6, 1e-7
@@ -185,3 +187,65 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         OB.backup_columns_(cols[0], cols[0], leaf, torch.zeros(6, 2),
                            leaf, n, q, v, spec)
+
+
+#: (N, B) of the random trees: the smallest tree, N not a multiple of 32,
+#: and B not a multiple of 8 (the descend kernel's games a block) or of 128
+#: (the JAX kernels' lane tile, which they pad to).
+RANDOM_SHAPES = ((2, 7), (43, 100), (70, 128), (100, 13))
+
+
+def _jax_tree_t(cols):
+    return JTT.TreeT(**{c: jnp.asarray(x) for c, x in zip(COLUMNS, cols)},
+                     node_state=None, valids=None, prior=None, e=None,
+                     player=None, expanded=None, next_free=None, depth=None,
+                     max_depth=None, leaf=None)
+
+
+@pytest.mark.parametrize("N,B", RANDOM_SHAPES)
+def test_descend_plain_matches_jax_kernel_on_random_trees(N, B):
+    tree = random_tree(N, B, seed=N * 1000 + B)
+    cols = [tree[c] for c in COLUMNS]
+    want = j_descend_t(_jax_tree_t(cols), JSpec(**SPEC_KW), interpret=True)
+    got = OD.descend_columns(*map(torch.from_numpy, cols),
+                             SearchSpec(**SPEC_KW))
+    _assert_walks_equal(got, want)
+    if N > 2:  # the chain games walk down their whole chain
+        assert int(got[3].max()) >= min(N - 1, 40)
+
+
+@pytest.mark.parametrize("N,B", RANDOM_SHAPES)
+def test_backup_plain_matches_jax_kernel_on_random_trees(N, B):
+    tree = random_tree(N, B, seed=N * 1000 + B + 1)
+    args = [tree[k] for k in ("parent", "player", "leaf", "value",
+                              "max_depth")]
+    nqv = [tree[k] for k in ("n", "q", "v")]
+    want = backup_batched_pallas_t(*map(jnp.asarray, args + nqv),
+                                   JSpec(**SPEC_KW), interpret=True)
+    got = [torch.from_numpy(x.copy()) for x in nqv]
+    OB.backup_columns_(*map(torch.from_numpy, args), *got,
+                       SearchSpec(**SPEC_KW))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+    # Every root's n rises, and where there is room, paths below it.
+    changed = int((got[0] != torch.from_numpy(nqv[0])).sum())
+    assert changed > B or (N == 2 and changed == B)
+
+
+@pytest.mark.parametrize("N,games", [
+    (2, 8), (203, 8), (2048, 8), (7233, 8), (7234, 4), (14497, 4),
+    (14498, 2), (29025, 2), (29026, 1), (OD.MAX_NODES, 1)])
+def test_descend_games_per_block_fits_shared_memory(N, games):
+    """The wrapper's choice of games a block: the most of 8, 4, 2, 1 whose
+    staged parent rows fit in the 227 KB a block may use."""
+    assert OD.games_per_block(N) == games
+    assert OD.staged_bytes(N, games) <= OD.SMEM_PER_BLOCK
+    if games < 8:
+        assert OD.staged_bytes(N, 2 * games) > OD.SMEM_PER_BLOCK
+
+
+def test_descend_rejects_trees_too_large_to_stage():
+    with pytest.raises(ValueError, match="shared memory"):
+        OD.games_per_block(OD.MAX_NODES + 1)
