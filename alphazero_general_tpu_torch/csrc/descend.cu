@@ -1,8 +1,14 @@
 // Batched PUCT descent: the whole walk from the root to a leaf, one warp per
-// game, over game-minor [N, B] tree columns.
+// game, over the tree columns in either of the port's layouts: game-minor
+// [N, B] (descend_kernel, entry point azg_descend) or batch-major [B, N]
+// (descend_rows_kernel, azg_descend_rows). Both read the columns where
+// they lie; only the indexing (layout.cuh) and the staging differ.
 //
 // Replaces: the Pallas TPU kernel _descend_kernel
-//   (alphazero_general_tpu/ops/descend.py:44, pallas_call at :168).
+//   (alphazero_general_tpu/ops/descend.py:44, pallas_call at :168), reached
+//   through descend_batched_t (:212, game-minor) and, on batch-major
+//   columns that it transposes to [N, B] first, descend_batched_pallas
+//   (:198) with its wrapper descend_batched (:226).
 //
 // What it computes, per game b (MCTS.pyx:86-104, 208-217):
 //   at node m, over the rows r < N-1 with parent[r] == m (the visited
@@ -28,11 +34,16 @@
 // - A block takes G neighbouring games (G = 8 when it fits: 8 int32 of one
 //   [N, B] row are one 32-byte sector), one warp per game: 256 blocks of
 //   256 threads at B = 2048, enough to fill the card.
-// - The block first copies parent[0:N-1, b0:b0+G] into shared memory,
-//   game-major, with coalesced loads (16-byte vectors where B % 4 == 0 and
-//   the column is aligned, scalars otherwise): the column is read from
-//   global memory once, as the bound counts it. That copy ends in the
-//   kernel's only __syncthreads(); each warp then walks its game alone.
+// - The block first copies the parent links of rows 0..N-2 of its games
+//   into shared memory, game-major, with coalesced loads: the column is
+//   read from global memory once, as the bound counts it. Game-minor, that
+//   is parent[0:N-1, b0:b0+G], read in 16-byte vectors where B % 4 == 0
+//   and the column is aligned, in scalars otherwise. Batch-major, the G
+//   games' rows are one contiguous run of G * N ints, read in scalars with
+//   consecutive threads on consecutive addresses (a game's row starts at a
+//   16-byte boundary only when N % 4 == 0; N = 403 at the production
+//   config with tree reuse). That copy ends in the kernel's only
+//   __syncthreads(); each warp then walks its game alone.
 // - At each step the 32 lanes scan the staged rows 32 at a time and
 //   __ballot_sync marks the children of the node; up to 32 children at a
 //   time are listed (ascending rows) and each lane loads q, n, edge_prior,
@@ -61,8 +72,12 @@
 #include <cuda_runtime.h>
 
 #include "device_guard.cuh"
+#include "layout.cuh"
 
 namespace {
+
+using azg::BatchMajor;
+using azg::GameMinor;
 
 constexpr float kNegInf = -3.0e38f;  // NEG_INF of the JAX kernel
 constexpr int kWarp = 32;
@@ -76,27 +91,13 @@ constexpr size_t smem_bytes(int num_nodes, int games) {
          static_cast<size_t>(num_nodes - 1 + kWarp);
 }
 
+// Stage parent[0:rows, b0:b0+G] of game-minor columns as
+// staged[g * rows + r]; games past the batch get -1 (no children).
 template <int G>
-__global__ void __launch_bounds__(G* kWarp)
-    descend_kernel(const int32_t* __restrict__ parent,
-                   const int32_t* __restrict__ parent_action,
-                   const int32_t* __restrict__ n,
-                   const float* __restrict__ q, const float* __restrict__ v,
-                   const float* __restrict__ edge_prior,
-                   const float* __restrict__ eany,
-                   const int32_t* __restrict__ nba,
-                   const float* __restrict__ nbp, int num_nodes, int batch,
-                   float cpuct, float fpu_reduction,
-                   int32_t* __restrict__ out, float* __restrict__ out_p_sel) {
-  extern __shared__ int32_t smem[];
-  const int rows = num_nodes - 1;  // row N-1 is the sink, never a child
-  const int warp = static_cast<int>(threadIdx.x) / kWarp;
-  const int lane = static_cast<int>(threadIdx.x) % kWarp;
-  const int b0 = static_cast<int>(blockIdx.x) * G;
+__device__ __forceinline__ void stage_game_minor(
+    const int32_t* __restrict__ parent, int32_t* smem, int rows, int batch,
+    int b0) {
   const size_t B = static_cast<size_t>(batch);
-
-  // Stage parent[0:rows, b0:b0+G] as staged[g * rows + r]; games past the
-  // batch get -1 (no children).
   bool staged = false;
   if constexpr (G % 4 == 0) {
     if (batch % 4 == 0 &&
@@ -124,27 +125,60 @@ __global__ void __launch_bounds__(G* kWarp)
       smem[g * rows + r] = b0 + g < batch ? parent[r * B + b0 + g] : -1;
     }
   }
-  __syncthreads();  // the only block-wide barrier
+}
 
-  const int b = b0 + warp;
+// Stage rows 0..N-2 of the block's games of batch-major rows as
+// staged[g * rows + r]: the games b0..b0+G-1 are one contiguous run of
+// parent, copied element by element. Games past the batch are not staged
+// (their warps exit without reading).
+template <int G>
+__device__ __forceinline__ void stage_batch_major(
+    const int32_t* __restrict__ parent, int32_t* smem, int num_nodes,
+    int batch, int b0) {
+  const int rows = num_nodes - 1;
+  const int games = min(G, batch - b0);
+  const int32_t* src = parent + static_cast<size_t>(b0) * num_nodes;
+  for (int i = threadIdx.x; i < games * num_nodes; i += G * kWarp) {
+    const int g = i / num_nodes;
+    const int r = i - g * num_nodes;
+    if (r < rows) smem[g * rows + r] = src[i];
+  }
+}
+
+// The walk of game b0 + warp over its staged parent links, after the
+// block's barrier. ``lay`` says where element (row, b) of a column lies.
+template <int G, class Layout>
+__device__ __forceinline__ void walk(
+    const int32_t* smem_staged, int32_t* smem_lists, const Layout lay,
+    const int32_t* __restrict__ parent_action, const int32_t* __restrict__ n,
+    const float* __restrict__ q, const float* __restrict__ v,
+    const float* __restrict__ edge_prior, const float* __restrict__ eany,
+    const int32_t* __restrict__ nba, const float* __restrict__ nbp,
+    int num_nodes, int batch, float cpuct, float fpu_reduction,
+    int32_t* __restrict__ out, float* __restrict__ out_p_sel) {
+  const int rows = num_nodes - 1;  // row N-1 is the sink, never a child
+  const int warp = static_cast<int>(threadIdx.x) / kWarp;
+  const int lane = static_cast<int>(threadIdx.x) % kWarp;
+  const int b = static_cast<int>(blockIdx.x) * G + warp;
   if (b >= batch) return;
-  const int32_t* const my_parent = smem + warp * rows;
-  int32_t* const list = smem + G * rows + warp * kWarp;
+  const size_t B = static_cast<size_t>(batch);
+  const int32_t* const my_parent = smem_staged + warp * rows;
+  int32_t* const list = smem_lists + warp * kWarp;
 
   int node = 0;
   int action = 0;
   int child = -1;
   int depth = 0;
   float p_sel = 0.0f;
-  int n_node = n[b];
+  int n_node = n[lay.at(0, b)];
   // An unvisited or terminal root keeps the initial outputs.
-  bool done = (n_node == 0) || (eany[b] > 0.5f);
+  bool done = (n_node == 0) || (eany[lay.at(0, b)] > 0.5f);
   // Every value below is the same in all 32 lanes (loaded at one address
   // or broadcast by a shuffle), so the warp never diverges on them. A walk
   // visits at most N distinct nodes; the cap only guards against a
   // corrupted tree turning into an endless loop.
   for (int step = 0; !done && step < num_nodes; ++step) {
-    const size_t at = static_cast<size_t>(node) * B + b;
+    const size_t at = lay.at(node, b);
     const float v_node = v[at];
     const float pv_u = nbp[at];
     const int a_u = nba[at];
@@ -186,7 +220,7 @@ __global__ void __launch_bounds__(G* kWarp)
       float ep = 0.0f, ce = 0.0f, score = kNegInf;
       if (lane < count) {
         row = list[lane];
-        const size_t rb = static_cast<size_t>(row) * B + b;
+        const size_t rb = lay.at(row, b);
         ep = edge_prior[rb];
         cn = n[rb];
         pa = parent_action[rb];
@@ -241,22 +275,65 @@ __global__ void __launch_bounds__(G* kWarp)
   }
 }
 
+#define AZG_DESCEND_PARAMS                                                  \
+  const int32_t *__restrict__ parent,                                       \
+      const int32_t *__restrict__ parent_action,                            \
+      const int32_t *__restrict__ n, const float *__restrict__ q,           \
+      const float *__restrict__ v, const float *__restrict__ edge_prior,    \
+      const float *__restrict__ eany, const int32_t *__restrict__ nba,      \
+      const float *__restrict__ nbp, int num_nodes, int batch, float cpuct, \
+      float fpu_reduction, int32_t *__restrict__ out,                       \
+      float *__restrict__ out_p_sel
+#define AZG_WALK_ARGS                                                      \
+  parent_action, n, q, v, edge_prior, eany, nba, nbp, num_nodes, batch,    \
+      cpuct, fpu_reduction, out, out_p_sel
+
+// Game-minor [N, B] columns.
 template <int G>
+__global__ void __launch_bounds__(G* kWarp)
+    descend_kernel(AZG_DESCEND_PARAMS) {
+  extern __shared__ int32_t smem[];
+  const int rows = num_nodes - 1;
+  stage_game_minor<G>(parent, smem, rows, batch,
+                      static_cast<int>(blockIdx.x) * G);
+  __syncthreads();  // the only block-wide barrier
+  walk<G>(smem, smem + G * rows, GameMinor{static_cast<size_t>(batch)},
+          AZG_WALK_ARGS);
+}
+
+// Batch-major [B, N] rows.
+template <int G>
+__global__ void __launch_bounds__(G* kWarp)
+    descend_rows_kernel(AZG_DESCEND_PARAMS) {
+  extern __shared__ int32_t smem[];
+  const int rows = num_nodes - 1;
+  stage_batch_major<G>(parent, smem, num_nodes, batch,
+                       static_cast<int>(blockIdx.x) * G);
+  __syncthreads();  // the only block-wide barrier
+  walk<G>(smem, smem + G * rows, BatchMajor{static_cast<size_t>(num_nodes)},
+          AZG_WALK_ARGS);
+}
+
+#undef AZG_WALK_ARGS
+#undef AZG_DESCEND_PARAMS
+
+template <int G, bool kRows>
 cudaError_t launch(const void* parent, const void* parent_action,
                    const void* n, const void* q, const void* v,
                    const void* edge_prior, const void* eany, const void* nba,
                    const void* nbp, int num_nodes, int batch, float cpuct,
                    float fpu_reduction, void* out, void* out_p_sel,
                    cudaStream_t stream) {
+  const auto kernel = kRows ? &descend_rows_kernel<G> : &descend_kernel<G>;
   const size_t smem = smem_bytes(num_nodes, G);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        descend_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int blocks = (batch + G - 1) / G;
-  descend_kernel<G><<<blocks, G * kWarp, smem, stream>>>(
+  kernel<<<blocks, G * kWarp, smem, stream>>>(
       static_cast<const int32_t*>(parent),
       static_cast<const int32_t*>(parent_action),
       static_cast<const int32_t*>(n), static_cast<const float*>(q),
@@ -267,28 +344,20 @@ cudaError_t launch(const void* parent, const void* parent_action,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes). The nine inputs are contiguous
-// [N, B] device columns; ``out`` is int32 [4, B] (node, action, child,
-// depth) and ``out_p_sel`` float32 [B]. ``games_per_block`` is 8, 4, 2 or 1
-// (chosen by the wrapper so that the staged rows fit); ``device`` is the
-// CUDA device of the tensors and ``stream`` a cudaStream_t on it. Returns
-// the cudaError_t of switching the device, raising the shared memory limit
-// or the launch.
-extern "C" int azg_descend(const void* parent, const void* parent_action,
-                           const void* n, const void* q, const void* v,
-                           const void* edge_prior, const void* eany,
-                           const void* nba, const void* nbp, int num_nodes,
-                           int batch, int games_per_block, float cpuct,
-                           float fpu_reduction, void* out, void* out_p_sel,
-                           int device, void* stream) {
+template <bool kRows>
+int descend_entry(const void* parent, const void* parent_action,
+                  const void* n, const void* q, const void* v,
+                  const void* edge_prior, const void* eany, const void* nba,
+                  const void* nbp, int num_nodes, int batch,
+                  int games_per_block, float cpuct, float fpu_reduction,
+                  void* out, void* out_p_sel, int device, void* stream) {
   azg::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define AZG_LAUNCH(G)                                                      \
-  launch<G>(parent, parent_action, n, q, v, edge_prior, eany, nba, nbp,    \
-            num_nodes, batch, cpuct, fpu_reduction, out, out_p_sel, s)
+  launch<G, kRows>(parent, parent_action, n, q, v, edge_prior, eany, nba,  \
+                   nbp, num_nodes, batch, cpuct, fpu_reduction, out,       \
+                   out_p_sel, s)
   cudaError_t err;
   switch (games_per_block) {
     case 8: err = AZG_LAUNCH(8); break;
@@ -299,4 +368,40 @@ extern "C" int azg_descend(const void* parent, const void* parent_action,
   }
 #undef AZG_LAUNCH
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes). The nine inputs are contiguous
+// device columns, game-minor [N, B] for azg_descend and batch-major [B, N]
+// for azg_descend_rows; ``out`` is int32 [4, B] (node, action, child,
+// depth) and ``out_p_sel`` float32 [B]. ``games_per_block`` is 8, 4, 2 or 1
+// (chosen by the wrapper so that the staged rows fit); ``device`` is the
+// CUDA device of the tensors and ``stream`` a cudaStream_t on it. Each
+// returns the cudaError_t of switching the device, raising the shared
+// memory limit or the launch.
+extern "C" int azg_descend(const void* parent, const void* parent_action,
+                           const void* n, const void* q, const void* v,
+                           const void* edge_prior, const void* eany,
+                           const void* nba, const void* nbp, int num_nodes,
+                           int batch, int games_per_block, float cpuct,
+                           float fpu_reduction, void* out, void* out_p_sel,
+                           int device, void* stream) {
+  return descend_entry<false>(parent, parent_action, n, q, v, edge_prior,
+                              eany, nba, nbp, num_nodes, batch,
+                              games_per_block, cpuct, fpu_reduction, out,
+                              out_p_sel, device, stream);
+}
+
+extern "C" int azg_descend_rows(const void* parent, const void* parent_action,
+                                const void* n, const void* q, const void* v,
+                                const void* edge_prior, const void* eany,
+                                const void* nba, const void* nbp,
+                                int num_nodes, int batch, int games_per_block,
+                                float cpuct, float fpu_reduction, void* out,
+                                void* out_p_sel, int device, void* stream) {
+  return descend_entry<true>(parent, parent_action, n, q, v, edge_prior,
+                             eany, nba, nbp, num_nodes, batch,
+                             games_per_block, cpuct, fpu_reduction, out,
+                             out_p_sel, device, stream);
 }

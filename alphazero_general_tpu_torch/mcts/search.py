@@ -1,14 +1,20 @@
-"""Batched search driver — the port of the fresh-tree game-minor path of
-alphazero_general_tpu/mcts/search.py (``search`` :347, ``_search_t`` :288,
-``_simulate_step_t`` :209, ``uniform_eval_fn`` :428).
+"""Batched search loops — the port of alphazero_general_tpu/mcts/search.py
+(``search`` :347, its fresh-tree game-minor path ``_search_t`` :288 and
+``_simulate_step_t`` :209, its general path ``simulate_step`` :83-164, and
+``uniform_eval_fn`` :428).
 
 One simulation for every game is: the descent kernel, the leaf's allocation
 and expansion, ONE batched network call, the prior install, and the backup
-kernel. The loop over simulations runs on the host and never waits for the
-device: nothing in it reads a tensor back.
+kernel. Two paths, as in the JAX package:
 
-Not ported yet: the batch-major general path (trees carried across moves),
-``leaf_batch`` > 1 rounds and the growing-arena segments of
+* fresh trees (a ``TreeT``): simulation k writes row k of every game;
+* carried trees (a batch-major ``Tree``, self-play with tree reuse): each
+  game allocates at its own ``next_free``.
+
+The loop over simulations runs on the host and never waits for the device:
+nothing in it reads a tensor back.
+
+Not ported yet: ``leaf_batch`` > 1 rounds and the growing-arena segments of
 ``_segment_plan``. The segments change only buffer extents and give results
 identical to the one flat loop run here.
 """
@@ -19,10 +25,13 @@ from typing import Callable
 
 import torch
 
+from alphazero_general_tpu_torch.mcts import tree as T
 from alphazero_general_tpu_torch.mcts import tree_t as TT
 from alphazero_general_tpu_torch.mcts.tree import SearchSpec
-from alphazero_general_tpu_torch.ops.backup import backup_batched_t
-from alphazero_general_tpu_torch.ops.descend import descend_batched_t
+from alphazero_general_tpu_torch.ops.backup import backup_batched, \
+    backup_batched_t
+from alphazero_general_tpu_torch.ops.descend import descend_batched, \
+    descend_batched_t
 
 #: Maps observations [B, C, H, W] to (policy [B, A], value [B, V]), both as
 #: probabilities (NNetWrapper.py:225-232).
@@ -66,20 +75,64 @@ def _search_t(env, tt, spec, eval_fn, sims: int, generator):
     return tt
 
 
-def search(env, tt, spec: SearchSpec, eval_fn: EvalFn, sims: int,
-           generator=None):
-    """Run ``sims`` simulations on the fresh trees ``tt`` (MCTS.pyx:165-173)
-    and return them, updated in place.
+def _leaf_step(env, tree, spec, eval_fn, root_adjust: bool, generator):
+    """Everything of one simulation on a batch-major ``tree`` before the
+    backup: walk, allocate and expand, evaluate, install the prior. Returns
+    the terminal-resolved values."""
+    walk = descend_batched(tree, spec)
+    T.apply_walk(env, tree, *walk)
+    pi, value = eval_fn(T.leaf_observation(env, tree))
+    values = T.resolve_value(tree, value.to(torch.float32))
+    T.install_prior(tree, pi.to(torch.float32), spec, root_adjust,
+                    generator=generator)
+    return values
+
+
+def simulate_step(env, tree, spec, eval_fn, root_adjust: bool,
+                  generator=None) -> None:
+    """One simulation for every game of a batch-major ``tree``, in place,
+    each game writing at its own ``next_free`` (search.py:83-164 with
+    ``uniform_slot=None``, ``expand_root_only=False``)."""
+    values = _leaf_step(env, tree, spec, eval_fn, root_adjust, generator)
+    backup_batched(tree, values, spec)
+
+
+def search(env, tree, spec: SearchSpec, eval_fn: EvalFn, sims: int,
+           generator=None, fresh_tree: bool = True):
+    """Run ``sims`` simulations (MCTS.pyx:165-173) and return the trees,
+    updated in place.
+
+    ``fresh_tree=True`` takes a fresh game-minor ``TreeT`` (never searched)
+    and writes simulation k at row k of every game; ``fresh_tree=False``
+    takes a batch-major ``Tree`` carried across moves, as self-play with
+    tree reuse does (search.py:417-425). Any other mix raises.
 
     Only the first simulation can have the root as its leaf, so only it
     takes the root temperature and noise (MCTS.pyx:247-256). Random draws
     (root Dirichlet noise, tie noise) come from ``generator``; a spec with
     ``add_root_noise=False`` and ``tie_noise=0`` draws nothing.
     """
-    if not 1 <= sims <= tt.capacity:
-        raise ValueError(f"sims must be in [1, {tt.capacity}] (the tree's "
-                         f"node rows), got {sims}")
-    return _search_t(env, tt, spec, eval_fn, sims, generator)
+    if fresh_tree:
+        if not isinstance(tree, TT.TreeT):
+            raise TypeError("a fresh-tree search takes a TreeT, got "
+                            f"{type(tree).__name__}")
+        if not 1 <= sims <= tree.capacity:
+            raise ValueError(f"sims must be in [1, {tree.capacity}] (the "
+                             f"tree's node rows), got {sims}")
+        return _search_t(env, tree, spec, eval_fn, sims, generator)
+    if not isinstance(tree, T.Tree):
+        raise TypeError("a search on carried trees takes a batch-major Tree, "
+                        f"got {type(tree).__name__}")
+    # One read of the allocation fronts per search: every simulation
+    # allocates at most one row per game, which must not reach the sink.
+    room = tree.capacity - int(tree.next_free.max())
+    if not 1 <= sims <= room:
+        raise ValueError(f"sims must be in [1, {room}] (the free rows of the "
+                         f"fullest tree), got {sims}")
+    for k in range(sims):
+        simulate_step(env, tree, spec, eval_fn, root_adjust=k == 0,
+                      generator=generator)
+    return tree
 
 
 def uniform_eval_fn(action_size: int, value_size: int) -> EvalFn:

@@ -36,8 +36,7 @@ import torch
 from alphazero_general_tpu_torch.envs.core import state_items
 from alphazero_general_tpu_torch.mcts import tree as T
 from alphazero_general_tpu_torch.mcts.tree import (
-    INVALID_PRIOR, NBP_PRISTINE, NOISE_ALPHA_RATIO, ROOT, UNVISITED,
-    SearchSpec, _renorm,
+    NBP_PRISTINE, ROOT, UNVISITED, SearchSpec,
 )
 
 
@@ -119,25 +118,18 @@ def init_tree_t(env, root_states, capacity: int, value_size: int) -> TreeT:
     )
 
 
-def _make_state(env, tt: TreeT, rows: Dict[str, torch.Tensor]):
-    """Env state from per-field ``[B, S]`` rows."""
-    return env.State(**{
-        name: x.reshape((x.shape[0],) + tt.state_shapes[name])
-        for name, x in rows.items()})
-
-
 def gather_states(env, tt: TreeT, idx: torch.Tensor):
     """The env state stored at node ``idx[b]`` of every game b
     (tree_t.py:285 _gather_states), as a batched game-major state."""
     games = torch.arange(idx.shape[0], device=idx.device)
     rows = idx.long()
-    return _make_state(env, tt, {
+    return T.make_state(env, tt.state_shapes, {
         name: buf[rows, :, games] for name, buf in tt.node_state.items()})
 
 
 def root_states(env, tt: TreeT):
     """Row 0 of every game's node_state."""
-    return _make_state(env, tt, {
+    return T.make_state(env, tt.state_shapes, {
         name: buf[0].T for name, buf in tt.node_state.items()})
 
 
@@ -218,61 +210,19 @@ def apply_walk_observe_t(env, tt: TreeT, node, action, child, depth,
     return obs, e_leaf, valid
 
 
-def _draws_needed(what: str, generator):
-    if generator is None:
-        raise ValueError(f"install_prior_t needs {what}: pass them, or a "
-                         "torch.Generator to draw them from")
-
-
 def install_prior_t(tt: TreeT, pi, spec: SearchSpec, root_adjust: bool,
                     slot: int, leaf_valids, gammas=None, tie=None,
                     generator=None) -> None:
-    """Mask and renormalise the policy ``pi`` [B, A] against the leaf's
-    valid moves and store it at row ``slot``, with root temperature and
-    Dirichlet noise (as ``spec`` enables them) where the leaf is the root
-    (tree_t.py:472, MCTS.pyx:236-258).
-
-    Random draws: ``gammas`` [B, A] are the standard Gamma(alpha) draws
-    behind the Dirichlet noise (alpha = 10.83 / #valid moves of the game),
-    ``tie`` [B, A] the uniform [0, 1) draws behind the tie noise. Each one
-    that is needed and not given is drawn from ``generator``.
-    """
-    B, A = pi.shape
-    valids = leaf_valids
-    masked = torch.where(valids, pi, 0.0)
-    norm = masked.sum(dim=-1, keepdim=True)
-    nvalid = torch.clamp(valids.sum(dim=-1, keepdim=True), min=1)
-    masked = torch.where(norm > 0, masked / norm,
-                         valids.to(torch.float32) / nvalid)
-
-    new_prior = masked
-    if root_adjust:
-        p = masked
-        if spec.add_root_temp:
-            p = _renorm(torch.where(valids, p ** (1.0 / spec.root_policy_temp),
-                                    0.0))
-        if spec.add_root_noise:
-            if gammas is None:
-                _draws_needed("Dirichlet gamma draws", generator)
-                alpha = NOISE_ALPHA_RATIO / nvalid.to(torch.float32)
-                gammas = torch._standard_gamma(
-                    alpha.expand(B, A).contiguous(), generator=generator)
-            gam = torch.where(valids, gammas, 0.0)
-            noise = gam / torch.clamp(gam.sum(dim=-1, keepdim=True),
-                                      min=1e-30)
-            p = p * (1 - spec.root_noise_frac) + spec.root_noise_frac * noise
-            p = torch.where(valids, p, 0.0)
-        is_root = (tt.leaf == ROOT)[:, None]
-        new_prior = torch.where(is_root, p, masked)
-    if spec.tie_noise:
-        if tie is None:
-            _draws_needed("tie-noise draws", generator)
-            tie = torch.rand((B, A), generator=generator, device=pi.device)
-        new_prior = torch.where(valids, new_prior + tie * spec.tie_noise,
-                                new_prior)
-    # Pack the valid mask into the stored row (the INVALID_PRIOR sign).
-    new_prior = torch.where(valids, new_prior, INVALID_PRIOR)
-    nb_a, nb_p = T.next_best(new_prior)
+    """Store the prior row of every game's leaf (``tree.prior_rows``: the
+    policy ``pi`` [B, A] masked and renormalised against the leaf's valid
+    moves, with root temperature and Dirichlet noise where the leaf is the
+    root and ``root_adjust`` is set, and tie noise) at row ``slot``
+    (tree_t.py:472, MCTS.pyx:236-258). The random draws are those of
+    ``prior_rows``."""
+    A = tt.num_actions
+    new_prior, nb_a, nb_p = T.prior_rows(
+        pi, leaf_valids, spec, (tt.leaf == ROOT) if root_adjust else None,
+        gammas, tie, generator)
     tt.prior[slot * A:(slot + 1) * A] = new_prior.T
     tt.nba[slot] = nb_a
     tt.nbp[slot] = nb_p

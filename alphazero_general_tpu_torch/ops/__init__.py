@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels with their plain PyTorch versions.
 
-* ``descend`` — the PUCT walk (replaces the Pallas ``_descend_kernel``);
-* ``backup`` — leaf-to-root value propagation (replaces ``_backup_kernel``);
+* ``descend`` — the PUCT walk (replaces the Pallas ``_descend_kernel``),
+  over game-minor or batch-major tree columns;
+* ``backup`` — leaf-to-root value propagation (replaces ``_backup_kernel``),
+  over either layout;
 * ``build`` — compiles ``csrc/*.cu`` with nvcc on first use and loads the
   library with ctypes.
 """

@@ -1,12 +1,17 @@
-"""Batched MCTS backup: the CUDA kernel ``csrc/backup.cu`` and its plain
-PyTorch version — the port of alphazero_general_tpu/ops/backup.py.
+"""Batched MCTS backup: the CUDA kernels of ``csrc/backup.cu`` and their
+plain PyTorch version — the port of alphazero_general_tpu/ops/backup.py.
 
-Both update the game-minor ``[N, B]`` n / q / v columns IN PLACE (the JAX
-kernel returns new arrays; updating in place saves three column copies per
-simulation). ``values`` must already be terminal-resolved.
+All update the n / q / v columns IN PLACE (the JAX kernel returns new
+arrays; updating in place saves three column copies per simulation).
+``values`` must already be terminal-resolved. Two entry points take the two
+tree layouts, each reading the columns where they lie:
 
-:func:`backup_columns_` launches the kernel for CUDA tensors and runs
-:func:`backup_plain_` for CPU tensors; there is no other fallback.
+* :func:`backup_columns_`: game-minor ``[N, B]`` columns (a ``TreeT``);
+* :func:`backup_rows_`: batch-major ``[B, N]`` rows (a ``Tree``), with
+  :func:`backup_batched` over a whole ``Tree``.
+
+Each launches its kernel for CUDA tensors and runs :func:`backup_plain_`
+for CPU tensors; there is no other fallback.
 """
 
 from __future__ import annotations
@@ -77,14 +82,19 @@ _DTYPES = (torch.int32, torch.int32, torch.int32, torch.float32, torch.int32,
 THREADS = 64
 
 
-def _check(tensors: tuple, spec: SearchSpec) -> tuple:
+def _check(tensors: tuple, spec: SearchSpec,
+           batch_major: bool = False) -> tuple:
     """Raise on an input of the wrong type, shape or device, or one that is
     not contiguous; returns (N, B)."""
     parent = tensors[0]
     if parent.dim() != 2:
-        raise ValueError(f"parent must be [N, B], got {tuple(parent.shape)}")
-    N, B = parent.shape
-    column, row = (N, B), (B,)
+        want = "[B, N]" if batch_major else "[N, B]"
+        raise ValueError(f"parent must be {want}, got {tuple(parent.shape)}")
+    if batch_major:
+        B, N = parent.shape
+    else:
+        N, B = parent.shape
+    column, row = tuple(parent.shape), (B,)
     shapes = (column, column, row, (B, spec.value_size), row, column, column,
               column)
     device = parent.device
@@ -101,33 +111,67 @@ def _check(tensors: tuple, spec: SearchSpec) -> tuple:
     return N, B
 
 
-def backup_columns_(parent, player, leaf, value, max_depth, n, q, v,
-                    spec: SearchSpec, threads: int = THREADS) -> None:
-    """Back ``value`` [B, V] up from ``leaf`` [B] to the root of every game,
-    updating n / q / v in place: the CUDA kernel (``threads`` a block) for
-    CUDA tensors, the plain version for CPU tensors. Counts kernel launches
-    in ``backup_columns_.launches``."""
-    tensors = (parent, player, leaf, value, max_depth, n, q, v)
-    N, B = _check(tensors, spec)
-    device = parent.device
-    if device.type == "cpu":
-        backup_plain_(*tensors, spec)
-        return
+def _launch(entry: str, tensors: tuple, num_nodes: int, batch: int,
+            spec: SearchSpec, threads: int) -> None:
+    """Launch the kernel behind the C entry point ``entry`` on CUDA
+    tensors."""
+    device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"backup runs on cuda or cpu, not {device}")
-    err = load_library().azg_backup(
-        *(x.data_ptr() for x in tensors), N, B, spec.value_size,
+    err = getattr(load_library(), entry)(
+        *(x.data_ptr() for x in tensors), num_nodes, batch, spec.value_size,
         spec.num_players, int(spec.has_draw), spec.log_min_discount, threads,
         device.index, current_stream(device.index))
     if err != 0:
         raise RuntimeError(f"backup kernel launch failed: CUDA error {err}")
+
+
+def backup_columns_(parent, player, leaf, value, max_depth, n, q, v,
+                    spec: SearchSpec, threads: int = THREADS) -> None:
+    """Back ``value`` [B, V] up from ``leaf`` [B] to the root of every game
+    over game-minor ``[N, B]`` columns, updating n / q / v in place: the
+    CUDA kernel (``threads`` a block) for CUDA tensors, the plain version
+    for CPU tensors. Counts kernel launches in
+    ``backup_columns_.launches``."""
+    tensors = (parent, player, leaf, value, max_depth, n, q, v)
+    N, B = _check(tensors, spec)
+    if parent.device.type == "cpu":
+        backup_plain_(*tensors, spec)
+        return
+    _launch("azg_backup", tensors, N, B, spec, threads)
     backup_columns_.launches += 1
 
 
 backup_columns_.launches = 0
 
 
+def backup_rows_(parent, player, leaf, value, max_depth, n, q, v,
+                 spec: SearchSpec, threads: int = THREADS) -> None:
+    """:func:`backup_columns_` over batch-major ``[B, N]`` rows, read and
+    updated where they lie (no transpose); the plain version runs on
+    transposed views. Counts kernel launches in
+    ``backup_rows_.launches``."""
+    tensors = (parent, player, leaf, value, max_depth, n, q, v)
+    N, B = _check(tensors, spec, batch_major=True)
+    if parent.device.type == "cpu":
+        backup_plain_(parent.t(), player.t(), leaf, value, max_depth, n.t(),
+                      q.t(), v.t(), spec)
+        return
+    _launch("azg_backup_rows", tensors, N, B, spec, threads)
+    backup_rows_.launches += 1
+
+
+backup_rows_.launches = 0
+
+
 def backup_batched_t(tt, values, spec: SearchSpec) -> None:
     """Backup on a game-minor TreeT, in place; ``values`` is [B, V]."""
     backup_columns_(tt.parent, tt.player, tt.leaf, values, tt.max_depth,
                     tt.n, tt.q, tt.v, spec)
+
+
+def backup_batched(tree, values, spec: SearchSpec) -> None:
+    """Backup on a batch-major Tree, in place (JAX ``backup_batched`` :233
+    and ``backup_batched_pallas`` :101); ``values`` is [B, V]."""
+    backup_rows_(tree.parent, tree.player, tree.leaf, values, tree.max_depth,
+                 tree.n, tree.q, tree.v, spec)

@@ -40,10 +40,16 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-#: C signature of every entry point: (argtypes, restype).
+_DESCEND = ([_P] * 9 + [_I, _I, _I, _F, _F, _P, _P, _I, _P], _I)
+_BACKUP = ([_P] * 8 + [_I] * 5 + [_F, _I, _I, _P], _I)
+#: C signature of every entry point: (argtypes, restype). The ``_rows``
+#: entry points take batch-major [B, N] tree columns, the others
+#: game-minor [N, B] ones, with the same arguments.
 SIGNATURES = {
-    "azg_descend": ([_P] * 9 + [_I, _I, _I, _F, _F, _P, _P, _I, _P], _I),
-    "azg_backup": ([_P] * 8 + [_I] * 5 + [_F, _I, _I, _P], _I),
+    "azg_descend": _DESCEND,
+    "azg_descend_rows": _DESCEND,
+    "azg_backup": _BACKUP,
+    "azg_backup_rows": _BACKUP,
 }
 
 

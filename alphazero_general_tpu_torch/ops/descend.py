@@ -1,16 +1,21 @@
-"""Batched PUCT descent: the CUDA kernel ``csrc/descend.cu`` and its plain
-PyTorch version — the port of alphazero_general_tpu/ops/descend.py.
+"""Batched PUCT descent: the CUDA kernels of ``csrc/descend.cu`` and their
+plain PyTorch version — the port of alphazero_general_tpu/ops/descend.py.
 
-The walk reads nine game-minor ``[N, B]`` tree columns — parent,
-parent_action, n, q, v, edge_prior, eany, nba, nbp — and never the ``[N*A]``
-prior rows: the best unexpanded action of a node is its rank-walk pointer
-(``nba``/``nbp``, see mcts/tree.next_best), so nothing here depends on the
-action-space size. It draws no randomness.
+The walk reads nine tree columns — parent, parent_action, n, q, v,
+edge_prior, eany, nba, nbp — and never the per-action prior rows: the best
+unexpanded action of a node is its rank-walk pointer (``nba``/``nbp``, see
+mcts/tree.next_best), so nothing here depends on the action-space size. It
+draws no randomness. Two entry points take the two tree layouts, each
+reading the columns where they lie:
 
-:func:`descend_columns` launches the kernel for CUDA tensors and runs
-:func:`descend_plain` for CPU tensors; there is no other fallback. The
-kernel stages each game's parent column in shared memory, so it takes trees
-of up to ``MAX_NODES`` rows; a larger CUDA tree raises ValueError.
+* :func:`descend_columns`: game-minor ``[N, B]`` columns (a ``TreeT``);
+* :func:`descend_rows`: batch-major ``[B, N]`` rows (a ``Tree``), with
+  :func:`descend_batched` over a whole ``Tree``.
+
+Each launches its kernel for CUDA tensors and runs :func:`descend_plain`
+for CPU tensors; there is no other fallback. The kernels stage each game's
+parent links in shared memory, so they take trees of up to ``MAX_NODES``
+rows; a larger CUDA tree raises ValueError.
 """
 
 from __future__ import annotations
@@ -37,12 +42,26 @@ SMEM_PER_BLOCK = 232448
 MAX_NODES = SMEM_PER_BLOCK // 4 - 32 + 1
 
 
-def _sum_rows_in_order(x: torch.Tensor) -> torch.Tensor:
-    """Column sums of ``x`` [N, B] accumulated row by row in ascending order
-    — the order of the kernel's loop — so that the plain version rounds
-    exactly as the kernel does."""
-    acc = torch.zeros_like(x[0])
-    for row in x:
+def _sum_rows_in_order(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Column sums of ``x`` [N, B] over the rows where ``mask`` is set,
+    accumulated one row at a time in ascending row order — the kernel's
+    order — so that the plain version rounds exactly as the kernel does.
+
+    The same sum as adding every row with 0.0 where the mask is clear: a
+    sum that starts at +0.0 is never -0.0, so adding +0.0 leaves it as it
+    is. Only the rows that count are added, in as many steps as a column
+    has of them."""
+    N, B = x.shape
+    rows = torch.arange(N, device=x.device)[:, None]
+    key = torch.where(mask, rows, N)
+    most = int(mask.sum(dim=0).max())
+    acc = torch.zeros(B, dtype=x.dtype, device=x.device)
+    if most == 0:
+        return acc
+    # Each column's masked rows first, in ascending order; then padding.
+    key, order = torch.topk(key, most, dim=0, largest=False, sorted=True)
+    vals = torch.where(key < N, x.gather(0, order), 0.0)
+    for row in vals:
         acc = acc + row
     return acc
 
@@ -74,7 +93,7 @@ def descend_plain(parent, parent_action, n, q, v, edge_prior, eany, nba,
         cur_n = nf[node, games]
         cur_v = v[node, games]
         is_child = (parent == node[None, :]) & not_sink  # [N, B]
-        seen = _sum_rows_in_order(torch.where(is_child, edge_prior, 0.0))
+        seen = _sum_rows_in_order(edge_prior, is_child)
         fpu = cur_v - fpu_reduction * torch.sqrt(torch.clamp(seen, min=0.0))
         sqrt_n = torch.sqrt(cur_n)
 
@@ -104,14 +123,16 @@ def descend_plain(parent, parent_action, n, q, v, edge_prior, eany, nba,
     return node.to(torch.int32), action, child, depth, p_sel
 
 
-def _check_columns(cols: tuple) -> tuple:
+def _check_columns(cols: tuple, batch_major: bool = False) -> tuple:
     """Raise on a column of the wrong type, shape or device, or one that is
-    not contiguous; returns (N, B)."""
+    not contiguous; returns the shape, (N, B) or with ``batch_major``
+    (B, N)."""
     parent = cols[0]
     shape = parent.shape
     device = parent.device
-    if len(shape) != 2 or shape[0] < 2:
-        raise ValueError(f"tree columns must be [N >= 2, B], got {shape}")
+    want = "[B, N >= 2]" if batch_major else "[N >= 2, B]"
+    if len(shape) != 2 or shape[int(batch_major)] < 2:
+        raise ValueError(f"tree columns must be {want}, got {tuple(shape)}")
     for name, x, want in zip(_COLUMN_NAMES, cols, _DTYPES):
         if x.dtype != want:
             raise TypeError(f"{name}: expected {want}, got {x.dtype}")
@@ -146,36 +167,66 @@ def games_per_block(num_nodes: int) -> int:
         f"may use (at most {MAX_NODES} rows)")
 
 
+def _launch(entry: str, cols: tuple, num_nodes: int, batch: int,
+            spec: SearchSpec):
+    """Launch the kernel behind the C entry point ``entry`` on CUDA columns;
+    returns (node, action, child, depth, p_sel)."""
+    device = cols[0].device
+    if device.type != "cuda":
+        raise ValueError(f"descend runs on cuda or cpu, not {device}")
+    games = games_per_block(num_nodes)
+    out = torch.empty((4, batch), dtype=torch.int32, device=device)
+    p_sel = torch.empty(batch, dtype=torch.float32, device=device)
+    err = getattr(load_library(), entry)(
+        *(x.data_ptr() for x in cols), num_nodes, batch, games, spec.cpuct,
+        spec.fpu_reduction, out.data_ptr(), p_sel.data_ptr(), device.index,
+        current_stream(device.index))
+    if err != 0:
+        raise RuntimeError(f"descend kernel launch failed: CUDA error {err}")
+    node, action, child, depth = out
+    return node, action, child, depth, p_sel
+
+
 def descend_columns(parent, parent_action, n, q, v, edge_prior, eany, nba,
                     nbp, spec: SearchSpec):
-    """The walk for every game: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Counts kernel launches in
-    ``descend_columns.launches``.
+    """The walk for every game over game-minor ``[N, B]`` columns: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors. Counts
+    kernel launches in ``descend_columns.launches``.
 
     Returns (node, action, child, depth) int32[B] and p_sel float32[B].
     """
     cols = (parent, parent_action, n, q, v, edge_prior, eany, nba, nbp)
     N, B = _check_columns(cols)
-    device = parent.device
-    if device.type == "cpu":
+    if parent.device.type == "cpu":
         return descend_plain(*cols, spec.cpuct, spec.fpu_reduction)
-    if device.type != "cuda":
-        raise ValueError(f"descend runs on cuda or cpu, not {device}")
-    games = games_per_block(N)
-    out = torch.empty((4, B), dtype=torch.int32, device=device)
-    p_sel = torch.empty(B, dtype=torch.float32, device=device)
-    err = load_library().azg_descend(
-        *(x.data_ptr() for x in cols), N, B, games, spec.cpuct,
-        spec.fpu_reduction, out.data_ptr(), p_sel.data_ptr(), device.index,
-        current_stream(device.index))
-    if err != 0:
-        raise RuntimeError(f"descend kernel launch failed: CUDA error {err}")
+    out = _launch("azg_descend", cols, N, B, spec)
     descend_columns.launches += 1
-    node, action, child, depth = out
-    return node, action, child, depth, p_sel
+    return out
 
 
 descend_columns.launches = 0
+
+
+def descend_rows(parent, parent_action, n, q, v, edge_prior, eany, nba, nbp,
+                 spec: SearchSpec):
+    """The walk for every game over batch-major ``[B, N]`` rows, read where
+    they lie (no transpose): the CUDA kernel for CUDA tensors, the plain
+    version (on transposed views) for CPU tensors. Counts kernel launches
+    in ``descend_rows.launches``.
+
+    Returns (node, action, child, depth) int32[B] and p_sel float32[B].
+    """
+    cols = (parent, parent_action, n, q, v, edge_prior, eany, nba, nbp)
+    B, N = _check_columns(cols, batch_major=True)
+    if parent.device.type == "cpu":
+        return descend_plain(*(x.t() for x in cols), spec.cpuct,
+                             spec.fpu_reduction)
+    out = _launch("azg_descend_rows", cols, N, B, spec)
+    descend_rows.launches += 1
+    return out
+
+
+descend_rows.launches = 0
 
 
 def descend_batched_t(tt, spec: SearchSpec):
@@ -186,5 +237,20 @@ def descend_batched_t(tt, spec: SearchSpec):
         tt.parent, tt.parent_action, tt.n, tt.q, tt.v, tt.edge_prior,
         tt.eany, tt.nba, tt.nbp, spec)
     skip_walk = (tt.n[0] == 0) | (tt.eany[0] > 0.5)
+    depth = torch.where(skip_walk, 0, depth)
+    return node, action, child, depth, skip_walk, p_sel
+
+
+def descend_batched(tree, spec: SearchSpec):
+    """Walk on a batch-major Tree (JAX ``descend_batched`` :226 and
+    ``descend_batched_pallas`` :198). A node is terminal where any entry of
+    its win vector ``e`` [B, N, V] is set.
+
+    Returns (node, action, child, depth, skip_walk, p_sel)."""
+    eany = (tree.e > 0).any(dim=-1)
+    node, action, child, depth, p_sel = descend_rows(
+        tree.parent, tree.parent_action, tree.n, tree.q, tree.v,
+        tree.edge_prior, eany.to(torch.float32), tree.nba, tree.nbp, spec)
+    skip_walk = (tree.n[:, 0] == 0) | eany[:, 0]
     depth = torch.where(skip_walk, 0, depth)
     return node, action, child, depth, skip_walk, p_sel

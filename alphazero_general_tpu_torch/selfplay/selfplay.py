@@ -1,18 +1,23 @@
-"""Lockstep self-play moves — the port of the fresh-tree path of
+"""Lockstep self-play moves — the port of
 alphazero_general_tpu/selfplay/selfplay.py (``SelfPlayConfig``,
 ``init_selfplay``, ``_update_temps``, ``move_step``, ``make_move_fns``;
 reference: alphazero/SelfPlayAgent.pyx:13-203).
 
-One move for a batch of B games is: a fresh search tree per game, ``sims``
+One move for a batch of B games is: a search tree per game, ``sims``
 simulations, the visit-count policy at temperature 1 (the training target)
 and at each game's temperature (the sampling policy), a Gumbel-max sample,
 the env step, and auto-reset of finished games. The host chooses fast or
 full search per move (``make_move_fns``), as the JAX package's production
 runners do.
 
-Not ported yet: tree reuse across moves (``reuse_tree``/``reroot``),
-``leaf_batch`` > 1, the scanned ``play_chunk``, and the float16 slimming of
-move records.
+The search tree is fresh every move (a game-minor ``TreeT``), or, with
+``reuse_tree``, carried across moves in a batch-major ``Tree``: re-rooted
+at the action played (the reference's update_root, MCTS.pyx:185-195) and
+restarted where the game ended, where the kept subtree leaves no room for
+another full search, or where it passed ``reset_threshold`` rows.
+
+Not ported yet: the warmup runner, ``leaf_batch`` > 1, the scanned
+``play_chunk``, and the float16 slimming of move records.
 """
 
 from __future__ import annotations
@@ -26,32 +31,55 @@ from alphazero_general_tpu_torch.envs.core import state_items
 from alphazero_general_tpu_torch.mcts import search as S
 from alphazero_general_tpu_torch.mcts import tree as T
 from alphazero_general_tpu_torch.mcts.tree_t import init_tree_t
-
-
-# default_temp_scaling (utils.py:19-27): the temperature halves every
-# TEMP_SCALE_FACTOR * max_turns turns, down to TEMP_MIN.
-TEMP_SCALE_FACTOR = 0.15
-TEMP_MIN = 0.2
+from alphazero_general_tpu_torch.utils.config import (
+    TEMP_MIN, TEMP_SCALE_FACTOR, default_temp_scaling,
+)
 
 
 class SelfPlayConfig(NamedTuple):
-    """Self-play hyperparameters (the fresh-tree subset of the JAX config)."""
+    """Self-play hyperparameters (the ported subset of the JAX config)."""
 
     sims_full: int = 100  # numMCTSSims
     sims_fast: int = 20  # numFastSims
+    sims_warmup: int = 5  # numWarmupSims (only sizes the trees here)
     start_temp: float = 1.0  # startTemp
+    tree_capacity: int = 0  # max_tree_nodes; 0 → sized from the sims
+    # Carry each game's search tree across moves, re-rooted at the action
+    # played (reuse_tree; the reference's update_root, MCTS.pyx:185-195).
+    reuse_tree: bool = False
+    # With tree reuse: restart a game's tree once it holds more than this
+    # many nodes (mctsResetThreshold, SelfPlayAgent.pyx:172-174); 0 = only
+    # the restart when a full search would not fit.
+    reset_threshold: int = 0
     spec: T.SearchSpec = T.SearchSpec()
 
     @property
     def capacity(self) -> int:
-        """Node rows of a fresh tree: one per simulation, plus one spare as
-        in the JAX package (its uniform-slot searches need sims <= rows - 1)."""
-        return self.sims_full + 2
+        """Node rows of a tree: one per simulation of the largest search,
+        plus one spare as in the JAX package (selfplay.py:76-81); with
+        reuse, room for a carried subtree as large as a full search too."""
+        if self.tree_capacity:
+            return self.tree_capacity
+        base = max(self.sims_full, self.sims_warmup)
+        return 2 * base + 2 if self.reuse_tree else base + 2
 
     @classmethod
     def from_args(cls, args, num_players: int,
                   has_draw: bool) -> "SelfPlayConfig":
-        """The config the reference's knobs describe (utils/config.py)."""
+        """The config the reference's knobs describe (utils/config.py), as
+        the JAX package's ``from_args`` reads them (selfplay.py:84-113).
+        Raises ValueError on a knob whose value the port cannot run: a
+        ``leaf_batch`` other than 1, or a ``temp_scaling_fn`` other than
+        the default schedule."""
+        leaf_batch = int(args.get("leaf_batch", 1))
+        if leaf_batch != 1:
+            raise ValueError(f"leaf_batch {leaf_batch} is not ported yet "
+                             "(only 1)")
+        if args.get("temp_scaling_fn",
+                     default_temp_scaling) is not default_temp_scaling:
+            raise ValueError("temp_scaling_fn "
+                             f"{args.temp_scaling_fn!r} is not ported yet "
+                             "(only utils.config.default_temp_scaling)")
         spec = T.SearchSpec(
             cpuct=float(args.cpuct),
             fpu_reduction=float(args.fpu_reduction),
@@ -66,7 +94,11 @@ class SelfPlayConfig(NamedTuple):
         return cls(
             sims_full=int(args.numMCTSSims),
             sims_fast=int(args.numFastSims),
+            sims_warmup=int(args.numWarmupSims),
             start_temp=float(args.startTemp),
+            tree_capacity=int(args.get("max_tree_nodes", 0)),
+            reuse_tree=bool(args.get("reuse_tree", False)),
+            reset_threshold=int(args.get("mctsResetThreshold") or 0),
             spec=spec,
         )
 
@@ -79,6 +111,9 @@ class SelfPlayState:
     temps: torch.Tensor  # f32[B]
     games_played: torch.Tensor  # i32 scalar: completed games so far
     move_count: torch.Tensor  # i32 scalar: move rounds so far
+    #: With tree reuse, each game's search tree rooted at ``env_state``
+    #: (a batch-major Tree, searched in place by the next move); else None.
+    trees: object = None
 
 
 @dataclasses.dataclass
@@ -93,16 +128,27 @@ class MoveRecord:
     done: torch.Tensor  # bool[B] the game ended on this move
     fast: bool  # batch-global fast-search flag (the sample is discarded)
     root_visits: torch.Tensor  # i32[B] visits of the search root
+    #: With tree reuse, bool[B]: the game's next tree is a fresh one (the
+    #: game ended, a full search would not fit, or the reset threshold was
+    #: passed) instead of its re-rooted subtree; None without reuse.
+    tree_reset: torch.Tensor = None
 
 
 def init_selfplay(env, batch_size: int, start_temp: float = 1.0,
-                  device="cuda") -> SelfPlayState:
+                  device="cuda", cfg: SelfPlayConfig = None) -> SelfPlayState:
+    """Fresh games; with ``cfg.reuse_tree``, their fresh search trees too
+    (selfplay.py:147-160)."""
+    states = env.init(batch_size, device)
+    trees = None
+    if cfg is not None and cfg.reuse_tree:
+        trees = T.init_tree(env, states, cfg.capacity, cfg.spec.value_size)
     return SelfPlayState(
-        env_state=env.init(batch_size, device),
+        env_state=states,
         temps=torch.full((batch_size,), start_temp, dtype=torch.float32,
                          device=device),
         games_played=torch.zeros((), dtype=torch.int32, device=device),
         move_count=torch.zeros((), dtype=torch.int32, device=device),
+        trees=trees,
     )
 
 
@@ -127,20 +173,30 @@ def move_step(env, cfg: SelfPlayConfig, eval_fn, carry: SelfPlayState,
     """One move for every game of the batch; returns (carry, MoveRecord).
 
     ``sims`` simulations run on a fresh tree sized to them (at most
-    ``cfg.capacity`` rows). Random draws:
+    ``cfg.capacity`` rows), or with ``cfg.reuse_tree`` on the carried trees
+    ``carry.trees``, which the search updates in place. Random draws:
     ``gumbel`` [B, A] is the noise added to the sampling logits; it and the
     search's draws come from ``generator`` where not given.
     """
     states = carry.env_state
     B = carry.temps.shape[0]
     dev = carry.temps.device
-    cap = min(cfg.capacity, sims + 2)
-    tt = init_tree_t(env, states, cap, cfg.spec.value_size)
-    S.search(env, tt, cfg.spec, eval_fn, sims, generator=generator)
+    if cfg.reuse_tree:
+        if carry.trees is None:
+            raise ValueError("reuse_tree carries trees across moves: start "
+                             "from init_selfplay(..., cfg=cfg)")
+        tree = S.search(env, carry.trees, cfg.spec, eval_fn, sims,
+                        generator=generator, fresh_tree=False)
+        root_visits = tree.n[:, 0].clone()
+    else:
+        cap = min(cfg.capacity, sims + 2)
+        tree = init_tree_t(env, states, cap, cfg.spec.value_size)
+        S.search(env, tree, cfg.spec, eval_fn, sims, generator=generator)
+        root_visits = tree.n[0].clone()
 
     # Temperature update before sampling (SelfPlayAgent.pyx:156-158).
     temps = _update_temps(carry.temps, states.turns, env.MAX_TURNS)
-    visits = T.counts(tt)
+    visits = T.counts(tree)
     pi_full = T.probs(visits, 1.0)
     pi_temp = T.probs(visits, temps)
     logits = torch.log(torch.clamp(pi_temp, min=1e-30))
@@ -166,15 +222,31 @@ def move_step(env, cfg: SelfPlayConfig, eval_fn, carry: SelfPlayState,
         name: select(name, x) for name, x in state_items(new_states).items()})
     temps = torch.where(done, cfg.start_temp, temps)
 
+    next_trees = restart = None
+    if cfg.reuse_tree:
+        # Re-root at the action played (selfplay.py:255-275); a game whose
+        # game ended, or whose subtree leaves no room for a full search,
+        # restarts from a fresh tree.
+        rerooted = T.reroot(env, tree, action)
+        restart = done | (rerooted.next_free
+                          + max(cfg.sims_full, cfg.sims_warmup) + 1
+                          > cfg.capacity)
+        if cfg.reset_threshold > 0:
+            restart = restart | (rerooted.next_free > cfg.reset_threshold)
+        fresh_trees = T.init_tree(env, next_states, cfg.capacity,
+                                  cfg.spec.value_size)
+        next_trees = T.select_games(restart, fresh_trees, rerooted)
+
     carry = SelfPlayState(
         env_state=next_states,
         temps=temps,
         games_played=carry.games_played + done.sum().to(torch.int32),
         move_count=carry.move_count + 1,
+        trees=next_trees,
     )
     record = MoveRecord(obs=obs, pi=pi_full, player=states.player,
                         action=action, win_state=win, done=done, fast=fast,
-                        root_visits=tt.n[0].clone())
+                        root_visits=root_visits, tree_reset=restart)
     return carry, record
 
 
@@ -184,8 +256,9 @@ def make_move_fns(env, cfg: SelfPlayConfig, apply_fn):
 
     ``apply_fn(obs) -> (log_pi, log_v)``, e.g. the ResNet module. Returns
     ``{"fast", "full"}`` → ``fn(carry, generator=None, gumbel=None) ->
-    (carry, MoveRecord)``. The JAX package's ``warmup`` runner is not ported
-    yet.
+    (carry, MoveRecord)``; with ``cfg.reuse_tree`` the carry holds the
+    trees (``init_selfplay(..., cfg=cfg)``). The JAX package's ``warmup``
+    runner is not ported yet.
     """
 
     def net_eval(obs):

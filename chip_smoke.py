@@ -11,21 +11,33 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    ``-Xptxas -v`` resource summary.
 3. kernels: during a full-width 200-simulation search and a 40-simulation
    one (connect4, 2048 games, random 128x8 ResNet; N = 203 and 43 tree
-   rows), hold each kernel against its plain PyTorch version on the same
-   tree snapshot, bit for bit, and time both: the kernel's device time
-   from torch.profiler (with L2 flushed before each launch, and back to
-   back with the inputs left in L2; the backup also at each block size of
-   ``BACKUP_THREADS``), each wrapper call and the plain version with CUDA
-   events, and the host's time per wrapper call by the host clock alone.
-   Then, on seeded random trees of every size in ``RANDOM_NODES`` and
-   batch in ``RANDOM_BATCHES`` (ragged, and a tree large enough to force
-   fewer games a descend block), both kernels again, bit for bit.
-4. reference: a small whole search on the card against the same search on
-   the CPU (plain versions), visit counts equal.
+   rows), hold each game-minor kernel against its plain PyTorch version
+   on the same tree snapshot, bit for bit, and time both: the kernel's
+   device time from torch.profiler (with L2 flushed before each launch,
+   and back to back with the inputs left in L2; the backup also at each
+   block size of ``BACKUP_THREADS``), each wrapper call and the plain
+   version with CUDA events, and the host's time per wrapper call by the
+   host clock alone. Then, on seeded random trees of every size in
+   ``RANDOM_NODES`` and batch in ``RANDOM_BATCHES`` (ragged, and a tree
+   large enough to force fewer games a descend block), all four kernels,
+   bit for bit: the game-minor ones on the trees, the batch-major ones on
+   the trees transposed to [B, N].
+4. reference: a small whole search, and two reuse moves, on the card
+   against the same on the CPU (plain versions): visit counts and tree
+   links equal, q within ``TOL_FLOAT``.
 5. self-play: 4 moves (fast, fast, fast, full) of the production config
    through ``make_move_fns``, with launch counters proving that every
-   simulation went through both kernels.
-6. breakdown: where the time of a 40- and a 200-simulation search goes,
+   simulation went through both game-minor kernels.
+6. reuse: 8 moves (the same cycle twice) of the production config with
+   tree reuse (N = 403 rows) from random openings, with launch counters
+   proving that every simulation went through both batch-major kernels;
+   then, on the carried trees it leaves, a 200-simulation search with both
+   batch-major kernels held against their plain versions at snapshots
+   and timed at the last one as in phase 3, beside the JAX package's
+   route on the card (the columns transposed to [N, B], then the
+   game-minor kernel); and one more fast move under torch.profiler, for
+   the kernels' device times in place.
+7. breakdown: where the time of a 40- and a 200-simulation search goes,
    per stage (CUDA events and host clock) and per kernel (torch.profiler:
    the kernels' device times in place, between the network's passes).
 
@@ -35,6 +47,7 @@ The last two lines are the kernels line ``{"kernels": [...]}`` and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -52,7 +65,7 @@ from alphazero_general_tpu_torch.models import NNetWrapper
 from alphazero_general_tpu_torch.ops import backup as OB
 from alphazero_general_tpu_torch.ops import descend as OD
 from alphazero_general_tpu_torch.selfplay import (
-    SelfPlayConfig, init_selfplay, make_move_fns,
+    SelfPlayConfig, SelfPlayState, init_selfplay, make_move_fns, move_step,
 )
 from alphazero_general_tpu_torch.utils import get_args
 from alphazero_general_tpu_torch.utils.random_tree import (
@@ -67,6 +80,9 @@ GAMES = 2048
 SIMS_FULL = 200
 SIMS_FAST = 40
 CYCLE = ("fast", "fast", "fast", "full")
+#: Moves of the reuse phase: the cycle twice, so that trees are carried
+#: into fast and full searches alike.
+REUSE_CYCLE = CYCLE * 2
 MODEL = dict(num_channels=128, depth=8, value_head_channels=32,
              policy_head_channels=32, value_dense_layers=[1024, 256],
              policy_dense_layers=[1024], compute_dtype="bfloat16")
@@ -74,6 +90,9 @@ SEED = 0
 #: Simulations of the phase-3 searches (full, fast) after which both
 #: kernels are checked; the last snapshot of each is timed.
 SNAPSHOTS = {SIMS_FULL: (50, 120, 199), SIMS_FAST: (20, 39)}
+#: Simulations of the reuse phase's search on carried trees after which the
+#: batch-major kernels are checked; the last snapshot is timed.
+REUSE_SNAPSHOTS = (0, 50, 120, 199)
 #: Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 #: float32 (non-tensor-core) operations/s, for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -85,17 +104,29 @@ L2_FLUSH_BYTES = 256 * 2**20
 #: Tolerance of the reference phase (a search on the card against the same
 #: search on the CPU: the CPU's float arithmetic may round otherwise).
 TOL_FLOAT = 1e-6
-#: Random trees on which both kernels are held against their plain versions
+#: Random trees on which the kernels are held against their plain versions
 #: (utils/random_tree.py): every tree size from the smallest to one that
-#: forces fewer than 8 games a descend block (N = 7300: 4), and batches
-#: that are a multiple of the block, ragged (1000 is not a multiple of 64)
-#: or too small for the 16-byte staging loads (7).
-RANDOM_NODES = (2, 43, 2048, 7300)
+#: forces fewer than 8 games a descend block (N = 7300: 4), among them the
+#: production reuse tree (N = 403, whose batch-major rows are not 16-byte
+#: aligned), and batches that are a multiple of the block, ragged (1000 is
+#: not a multiple of 64) or too small for the 16-byte staging loads (7).
+RANDOM_NODES = (2, 43, 403, 2048, 7300)
 RANDOM_BATCHES = (2048, 1000, 7)
 #: Block sizes of the backup timed in the kernel phase.
 BACKUP_THREADS = (32, 64, 128)
 #: Wrapper calls timed by the host clock alone, with no sync among them.
 HOST_CALLS = 1000
+#: Traces ``_trace`` takes at most for one that holds every launch.
+PROFILE_TRIES = 3
+#: What torch.profiler traces: the device's kernels only. Every number
+#: taken from a trace is a kernel's; host ops would only lengthen the
+#: processing of a trace (a 200-simulation search launches about 97,000
+#: kernels).
+PROFILED = [torch.profiler.ProfilerActivity.CUDA]
+#: Every kernel wrapper, by the name of its kernel record; each counts its
+#: launches in ``.launches``.
+COUNTED = {"descend": OD.descend_columns, "backup": OB.backup_columns_,
+           "descend_rows": OD.descend_rows, "backup_rows": OB.backup_rows_}
 
 
 class SmokeFailure(RuntimeError):
@@ -155,6 +186,44 @@ def _device_kernels(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def _trace(fn, reps: int, device, kernel: str, flush_l2: bool):
+    """(device kernels, launches of ``kernel``) of a torch.profiler trace
+    of ``reps`` calls of ``fn``; with ``flush_l2``, a fill of
+    ``L2_FLUSH_BYTES`` runs before each call and its kernels are left out.
+
+    Traces on the card have lost records now and then (the kernel's and
+    the fills' alike: 32 of 50 once, 47 or 48 of 50 in every trace of one
+    phase of another run), and the same traces held all 50 when run
+    alone. So a trace short of launches is taken again, up to
+    ``PROFILE_TRIES`` times, and then the fullest one serves if it holds
+    at least half of them: its times average the launches it holds."""
+    scrub = (torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                         device=device) if flush_l2 else None)
+    fn()
+    torch.cuda.synchronize(device)
+    best = ([], -1)
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=PROFILED) as prof:
+            for i in range(reps):
+                if scrub is not None:
+                    scrub.fill_(i)
+                fn()
+            torch.cuda.synchronize(device)
+        events = _device_kernels(prof)
+        count = sum(e.count for e in events if kernel in e.key)
+        if count > best[1]:
+            best = ([e for e in events
+                     if scrub is None or "FillFunctor" not in e.key], count)
+        if count == reps:
+            break
+        log(f"  (the profiler's trace holds {count} of {reps} launches of "
+            f"{kernel})")
+    check(best[1] >= reps // 2,
+          f"profiler traces held at most {best[1]} of {reps} launches of "
+          f"{kernel}")
+    return best
+
+
 def kernel_ms(fn, reps: int, device, kernel: str,
               flush_l2: bool = False) -> float:
     """Device milliseconds of one launch of the CUDA kernel whose name
@@ -166,23 +235,30 @@ def kernel_ms(fn, reps: int, device, kernel: str,
     host time of one call."""
     if torch.device(device).type != "cuda":
         return time_ms(fn, reps, device)
-    scrub = (torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
-                         device=device) if flush_l2 else None)
-    fn()
-    torch.cuda.synchronize(device)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for i in range(reps):
-            if scrub is not None:
-                scrub.fill_(i)
-            fn()
-        torch.cuda.synchronize(device)
-    hits = [e for e in _device_kernels(prof) if kernel in e.key]
-    count = sum(e.count for e in hits)
-    check(count == reps, f"profiler saw {count} launches of {kernel}, "
-                         f"expected {reps}")
-    return sum(e.self_device_time_total for e in hits) / count / 1e3
+    events, count = _trace(fn, reps, device, kernel, flush_l2)
+    return sum(e.self_device_time_total for e in events
+               if kernel in e.key) / count / 1e3
+
+
+def device_ms(fn, reps: int, device, kernel: str,
+              flush_l2: bool = False) -> float:
+    """Device milliseconds of all the kernels one call of ``fn`` launches,
+    from a trace as ``kernel_ms`` takes it, per launch of the kernel named
+    ``kernel`` that the trace holds. On the CPU, the host time of one
+    call."""
+    if torch.device(device).type != "cuda":
+        return time_ms(fn, reps, device)
+    events, count = _trace(fn, reps, device, kernel, flush_l2)
+    return sum(e.self_device_time_total for e in events) / count / 1e3
+
+
+def reset_counts() -> None:
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: wrapper.launches for name, wrapper in COUNTED.items()}
 
 
 def launch_floor_ms(device, reps: int = 50) -> float:
@@ -286,43 +362,53 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-def compare_descend(cols, spec, where: str) -> float:
-    """Kernel against plain on one set of [N, B] columns: every output
-    equal bit for bit (the kernel is exact by construction). Returns the
-    max abs p_sel error, 0.0."""
-    got = OD.descend_columns(*cols, spec)
+def compare_descend(cols, spec, where: str, rows: bool = False) -> float:
+    """Kernel against plain on one set of columns, game-minor [N, B] or
+    with ``rows`` batch-major [B, N]: every output equal bit for bit (the
+    kernels are exact by construction). Returns the max abs p_sel error,
+    0.0."""
+    wrapper = OD.descend_rows if rows else OD.descend_columns
+    got = wrapper(*cols, spec)
     sync(cols[0].device)
-    want = OD.descend_plain(*cols, spec.cpuct, spec.fpu_reduction)
+    want = OD.descend_plain(*(c.t() if rows else c for c in cols),
+                            spec.cpuct, spec.fpu_reduction)
     for name, g, w in zip(("node", "action", "child", "depth", "p_sel"),
                           got, want):
         bad = (g.view(torch.int32) != w.view(torch.int32)).nonzero()
         if len(bad):
             game = int(bad[0, 0])
             raise SmokeFailure(
-                f"descend {name} disagrees on {len(bad)} games {where}; "
-                f"game {game}: kernel {[float(x[game]) for x in got]} plain "
-                f"{[float(x[game]) for x in want]}")
+                f"{wrapper.__name__} {name} disagrees on {len(bad)} games "
+                f"{where}; game {game}: kernel {[float(x[game]) for x in got]}"
+                f" plain {[float(x[game]) for x in want]}")
     return (got[4] - want[4]).abs().max().item()
 
 
-def compare_backup(args, nqv, spec, where: str) -> float:
-    """Kernel against plain from the same n, q, v: visit counts equal and
-    q, v equal bit for bit. Returns the max abs q/v error, 0.0."""
+def compare_backup(args, nqv, spec, where: str, rows: bool = False) -> float:
+    """Kernel against plain from the same n, q, v (game-minor, or with
+    ``rows`` batch-major): visit counts equal and q, v equal bit for bit.
+    Returns the max abs q/v error, 0.0."""
     k_cols = [x.clone() for x in nqv]
     p_cols = [x.clone() for x in nqv]
-    OB.backup_columns_(*args, *k_cols, spec)
+    wrapper = OB.backup_rows_ if rows else OB.backup_columns_
+    wrapper(*args, *k_cols, spec)
     sync(nqv[0].device)
-    OB.backup_plain_(*args, *p_cols, spec)
+    if rows:
+        OB.backup_plain_(args[0].t(), args[1].t(), *args[2:],
+                         *(x.t() for x in p_cols), spec)
+    else:
+        OB.backup_plain_(*args, *p_cols, spec)
     for name, g, w in zip("nqv", k_cols, p_cols):
-        check(bits_equal(g, w), f"backup {name} disagrees {where}")
+        check(bits_equal(g, w), f"{wrapper.__name__} {name} disagrees {where}")
     return max((k_cols[1] - p_cols[1]).abs().max().item(),
                (k_cols[2] - p_cols[2]).abs().max().item())
 
 
-def _path_lengths(tt) -> np.ndarray:
-    """Edges from each game's pending leaf to its root (host walk)."""
-    parent = tt.parent.cpu().numpy()
-    leaf = tt.leaf.cpu().numpy()
+def _path_lengths(parent, leaf) -> np.ndarray:
+    """Edges from each game's pending leaf to its root (host walk) over
+    ``[N, B]`` parent links."""
+    parent = parent.cpu().numpy()
+    leaf = leaf.cpu().numpy()
     out = np.zeros(leaf.shape[0], np.int64)
     for b, node in enumerate(leaf):
         while node != 0:
@@ -408,7 +494,7 @@ def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
             args, (tt.n, tt.q, tt.v), spec, where))
         if slot == snapshots[-1]:
             scratch = [tt.n.clone(), tt.q.clone(), tt.v.clone()]
-            paths = _path_lengths(tt)
+            paths = _path_lengths(tt.parent, tt.leaf)
 
             def launch(threads=OB.THREADS):
                 OB.backup_columns_(*args, *scratch, spec, threads=threads)
@@ -424,7 +510,8 @@ def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
                 ms_by_threads={t: kernel_ms(
                     lambda: launch(t), reps, device, "backup_kernel",
                     flush_l2=True) for t in BACKUP_THREADS},
-                path_sum=int(paths.sum()), path_max=int(paths.max()))
+                N=tt.parent.shape[0], path_sum=int(paths.sum()),
+                path_max=int(paths.max()))
         OB.backup_batched_t(tt, values, spec)
         log(f"  snapshot after {slot} sims: descend and backup agree "
             f"(max errors {errs['descend']:.3g}, {errs['backup']:.3g})")
@@ -435,29 +522,40 @@ def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
 
 def random_tree_phase(spec, device, nodes=RANDOM_NODES,
                       batches=RANDOM_BATCHES):
-    """Both kernels against their plain versions, bit for bit, on seeded
-    random trees (utils/random_tree.py) of every size in ``nodes`` and
-    every game count in ``batches``, with a discount below 1 so that the
-    backup's exp is exercised. Returns the max abs errors."""
+    """All four kernels against their plain versions, bit for bit, on
+    seeded random trees (utils/random_tree.py) of every size in ``nodes``
+    and every game count in ``batches``: the game-minor kernels on the
+    trees as made, the batch-major ones on the same trees transposed to
+    [B, N]. A discount below 1 exercises the backup's exp. Returns the max
+    abs errors."""
     spec = spec._replace(min_discount=0.8)
-    errs = {"descend": 0.0, "backup": 0.0}
+    errs = dict.fromkeys(COUNTED, 0.0)
+    rows_of = {name for name, _ in DESCEND_COLUMNS} | {"player"}
     for N in nodes:
         for B in batches:
-            tree = {k: torch.from_numpy(x).to(device)
-                    for k, x in random_tree(N, B, seed=SEED + N * 7 + B,
-                                            num_players=spec.num_players,
-                                            has_draw=spec.has_draw).items()}
-            where = f"on a random tree, N={N}, B={B}"
-            cols = [tree[name] for name, _ in DESCEND_COLUMNS]
-            errs["descend"] = max(errs["descend"],
-                                  compare_descend(cols, spec, where))
-            args = [tree[k] for k in ("parent", "player", "leaf", "value",
-                                      "max_depth")]
-            errs["backup"] = max(errs["backup"], compare_backup(
-                args, [tree[k] for k in "nqv"], spec, where))
+            made = random_tree(N, B, seed=SEED + N * 7 + B,
+                               num_players=spec.num_players,
+                               has_draw=spec.has_draw)
+            for rows in (False, True):
+                tree = {k: torch.from_numpy(
+                    np.ascontiguousarray(x.T) if rows and k in rows_of
+                    else x).to(device) for k, x in made.items()}
+                where = (f"on a random tree, N={N}, B={B}"
+                         + (", batch-major" if rows else ""))
+                suffix = "_rows" if rows else ""
+                cols = [tree[name] for name, _ in DESCEND_COLUMNS]
+                errs["descend" + suffix] = max(
+                    errs["descend" + suffix],
+                    compare_descend(cols, spec, where, rows))
+                args = [tree[k] for k in ("parent", "player", "leaf",
+                                          "value", "max_depth")]
+                errs["backup" + suffix] = max(
+                    errs["backup" + suffix],
+                    compare_backup(args, [tree[k] for k in "nqv"], spec,
+                                   where, rows))
             log(f"  random trees N={N} (games per descend block "
-                f"{OD.games_per_block(N)}), B={B}: descend and backup "
-                "equal bit for bit")
+                f"{OD.games_per_block(N)}), B={B}: the four kernels equal "
+                "bit for bit")
     return errs
 
 
@@ -485,19 +583,76 @@ def reference_phase(env, device, batch: int = 256, sims: int = 64):
         f"(n, parent, parent_action equal; q max error {err:.3g})")
 
 
-def selfplay_phase(env, model, cfg, batch: int, cycle, device):
-    """Moves of the config ``cfg`` through make_move_fns. Resets the
-    kernels' launch counters just before and reads them just after."""
+def reference_reuse_phase(env, device, batch: int = 256, sims=(16, 64)):
+    """Reuse moves (a fast one, then a full one on the carried trees)
+    through the batch-major kernels on ``device`` against the same moves
+    through the plain versions on the CPU, with the same Gumbel noise."""
+    spec = T.SearchSpec(add_root_noise=False, tie_noise=0.0)
+    cfg = SelfPlayConfig(sims_full=sims[1], sims_fast=sims[0],
+                         reuse_tree=True, spec=spec)
+    eval_fn = table_eval_fn(env.ACTION_SIZE, spec.value_size)
+    gen = torch.Generator("cpu").manual_seed(SEED + 5)
+    roots = random_openings(env, batch, 8, gen, "cpu")
+    rng = np.random.default_rng(SEED + 5)
+    gumbels = [torch.from_numpy(rng.gumbel(size=(batch, env.ACTION_SIZE))
+                                .astype(np.float32)) for _ in sims]
+    runs = []
+    for dev in (device, "cpu"):
+        states = env.State(**{k: x.to(dev)
+                              for k, x in state_items(roots).items()})
+        carry = SelfPlayState(
+            env_state=states,
+            temps=torch.ones(batch, device=dev),
+            games_played=torch.zeros((), dtype=torch.int32, device=dev),
+            move_count=torch.zeros((), dtype=torch.int32, device=dev),
+            trees=T.init_tree(env, states, cfg.capacity, spec.value_size))
+        actions = []
+        for k, n_sims in enumerate(sims):
+            carry, rec = move_step(env, cfg, eval_fn, carry, n_sims,
+                                   fast=k == 0, gumbel=gumbels[k].to(dev))
+            actions.append(rec.action.cpu())
+        runs.append((carry.trees, actions))
+    (got, got_a), (want, want_a) = runs
+    for k, (a, b) in enumerate(zip(got_a, want_a)):
+        check(torch.equal(a, b), f"reuse reference: move {k} actions differ")
+    for name in ("n", "parent", "parent_action", "nba"):
+        check(torch.equal(getattr(got, name)[:, :-1].cpu(),
+                          getattr(want, name)[:, :-1]),
+              f"reuse reference: {name} differs between {device} and cpu")
+    check(torch.equal(got.next_free.cpu(), want.next_free),
+          "reuse reference: next_free differs")
+    err = (got.q[:, :-1].cpu() - want.q[:, :-1]).abs().max().item()
+    check(err <= TOL_FLOAT, f"reuse reference: q error {err}")
+    carried = int((want.next_free > 1).sum())
+    check(carried > 0, "reuse reference: no tree was carried")
+    log(f"  {batch} games x reuse moves of {sims} sims on {device} == cpu "
+        f"(actions, n, links equal; q max error {err:.3g}; "
+        f"{carried} trees carried)")
+
+
+def selfplay_phase(env, model, cfg, batch: int, cycle, device,
+                   openings=None):
+    """Moves of the config ``cfg`` through make_move_fns, from the start
+    position or from ``openings``. Resets every kernel's launch counter
+    just before and reads them just after: on fresh trees each simulation
+    runs the game-minor backup, and the game-minor descent but on the
+    first (which expands the root without a walk); with tree reuse each
+    simulation runs both batch-major kernels; no other kernel runs."""
     fns = make_move_fns(env, cfg, model)
-    carry = init_selfplay(env, batch, device=device)
+    carry = init_selfplay(env, batch, device=device, cfg=cfg)
+    if openings is not None:
+        carry.env_state = openings
+        if cfg.reuse_tree:
+            carry.trees = T.init_tree(env, openings, cfg.capacity,
+                                      cfg.spec.value_size)
     gen = torch.Generator(device).manual_seed(SEED + 2)
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     sync(device)
-    OD.descend_columns.launches = 0
-    OB.backup_columns_.launches = 0
+    reset_counts()
     moves = []
+    restarts = {"done": 0, "overflow": 0}
     for kind in cycle:
         sims = cfg.sims_fast if kind == "fast" else cfg.sims_full
         before = carry.env_state
@@ -506,8 +661,14 @@ def selfplay_phase(env, model, cfg, batch: int, cycle, device):
         sync(device)
         dt = time.perf_counter() - t0
         moves.append((kind, sims, dt))
-        check(bool((rec.root_visits == sims).all()),
-              f"{kind} move: root visits != {sims}")
+        if cfg.reuse_tree:  # carried roots hold earlier visits too
+            check(bool((rec.root_visits >= sims).all()),
+                  f"{kind} move: root visits < {sims}")
+            restarts["done"] += int((rec.tree_reset & rec.done).sum())
+            restarts["overflow"] += int((rec.tree_reset & ~rec.done).sum())
+        else:
+            check(bool((rec.root_visits == sims).all()),
+                  f"{kind} move: root visits != {sims}")
         check(rec.pi.shape == (batch, env.ACTION_SIZE)
               and bool(torch.isfinite(rec.pi).all()),
               f"{kind} move: policy shape or values wrong")
@@ -520,19 +681,146 @@ def selfplay_phase(env, model, cfg, batch: int, cycle, device):
         check(bool(legal.all()), f"{kind} move: illegal action")
         log(f"  {kind} move: {sims} sims x {batch} games in {dt:.3f} s "
             f"= {batch * sims / dt:,.0f} sims/s")
-    launches = {"descend": OD.descend_columns.launches,
-                "backup": OB.backup_columns_.launches}
-    expect = {"descend": sum(s - 1 for _, s, _ in moves),
-              "backup": sum(s for _, s, _ in moves)}
-    if not cuda:  # the plain versions run and launch nothing
-        expect = {k: 0 for k in expect}
+    launches = read_counts()
+    total = sum(s for _, s, _ in moves)
+    expect = dict.fromkeys(COUNTED, 0)
+    if cuda:  # the plain versions run on the CPU and launch nothing
+        if cfg.reuse_tree:
+            expect.update(descend_rows=total, backup_rows=total)
+        else:
+            expect.update(descend=total - len(moves), backup=total)
     check(launches == expect,
           f"kernel launches {launches} != expected {expect}")
+    carried = 0
+    if cfg.reuse_tree:
+        carried = int((carry.trees.next_free > 1).sum())
+        check(carried > 0, "no tree was carried into the next move")
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    total_sims = batch * sum(s for _, s, _ in moves)
     total_s = sum(dt for _, _, dt in moves)
     return dict(moves=moves, launches=launches,
-                sims_per_s=total_sims / total_s, peak_bytes=peak)
+                sims_per_s=batch * total / total_s, peak_bytes=peak,
+                restarts=restarts, carried=carried, carry=carry, fns=fns,
+                generator=gen)
+
+
+def _clone_tree(tree):
+    return dataclasses.replace(
+        tree, node_state={k: x.clone() for k, x in tree.node_state.items()},
+        **{k: getattr(tree, k).clone() for k in T.TREE_TENSORS})
+
+
+def rows_kernel_phase(env, eval_fn, spec, tree, sims: int, snapshots,
+                      device, reps: int = 50):
+    """The batch-major kernels against their plain versions at each
+    snapshot of a ``sims``-simulation search on (a copy of) the carried
+    trees ``tree``, and at the last snapshot their times, the bytes their
+    work needs, and the JAX package's route on the card: the columns
+    transposed to [N, B], the game-minor kernel, and (backup) the results
+    transposed back."""
+    gen = torch.Generator(device).manual_seed(SEED + 4)
+    host_calls = HOST_CALLS if torch.device(device).type == "cuda" else reps
+    tree = _clone_tree(tree)
+    errs = {"descend_rows": 0.0, "backup_rows": 0.0}
+    timing = {}
+    N, B = tree.parent.shape[1], tree.parent.shape[0]
+    carried = int((tree.next_free > 1).sum())
+    for k in range(sims):
+        if k not in snapshots:
+            S.simulate_step(env, tree, spec, eval_fn, root_adjust=k == 0,
+                            generator=gen)
+            continue
+        where = f"at N={N}, B={B}, after {k} sims on carried trees"
+        eany = (tree.e > 0).any(dim=-1).to(torch.float32)
+        cols = (tree.parent, tree.parent_action, tree.n, tree.q, tree.v,
+                tree.edge_prior, eany, tree.nba, tree.nbp)
+        errs["descend_rows"] = max(errs["descend_rows"], compare_descend(
+            cols, spec, where, rows=True))
+        last = k == snapshots[-1]
+        if last:
+            walk = OD.descend_rows(*cols, spec)
+            launch = lambda: OD.descend_rows(*cols, spec)  # noqa: E731
+
+            def jax_route():
+                return OD.descend_columns(*(c.t().contiguous()
+                                            for c in cols), spec)
+
+            timing["descend_rows"] = dict(
+                ms=kernel_ms(launch, reps, device, "descend_rows_kernel",
+                             flush_l2=True),
+                ms_l2_warm=kernel_ms(launch, reps, device,
+                                     "descend_rows_kernel"),
+                call_ms=time_ms(launch, reps, device),
+                host_ms=host_ms(launch, host_calls, device),
+                plain_ms=time_ms(lambda: OD.descend_plain(
+                    *(c.t() for c in cols), spec.cpuct, spec.fpu_reduction),
+                    3, device),
+                jax_route_ms=device_ms(jax_route, reps, device,
+                                       "descend_kernel", flush_l2=True),
+                jax_route_call_ms=time_ms(jax_route, reps, device),
+                N=N, depth_sum=int(walk[3].sum().item()),
+                depth_max=int(walk[3].max().item()),
+                bytes=_descend_bytes([c.t() for c in cols], walk))
+        values = S._leaf_step(env, tree, spec, eval_fn, k == 0, gen)
+        args = (tree.parent, tree.player, tree.leaf, values, tree.max_depth)
+        errs["backup_rows"] = max(errs["backup_rows"], compare_backup(
+            args, (tree.n, tree.q, tree.v), spec, where, rows=True))
+        if last:
+            scratch = [tree.n.clone(), tree.q.clone(), tree.v.clone()]
+            paths = _path_lengths(tree.parent.t(), tree.leaf)
+
+            def launch():
+                OB.backup_rows_(*args, *scratch, spec)
+
+            def jax_route():
+                nqv = [x.t().contiguous() for x in scratch]
+                OB.backup_columns_(args[0].t().contiguous(),
+                                   args[1].t().contiguous(), *args[2:],
+                                   *nqv, spec)
+                for x, y in zip(scratch, nqv):
+                    x.copy_(y.t())
+
+            timing["backup_rows"] = dict(
+                ms=kernel_ms(launch, reps, device, "backup_rows_kernel",
+                             flush_l2=True),
+                ms_l2_warm=kernel_ms(launch, reps, device,
+                                     "backup_rows_kernel"),
+                call_ms=time_ms(launch, reps, device),
+                host_ms=host_ms(launch, host_calls, device),
+                plain_ms=time_ms(lambda: OB.backup_plain_(
+                    args[0].t(), args[1].t(), *args[2:],
+                    *(x.t() for x in scratch), spec), 3, device),
+                jax_route_ms=device_ms(jax_route, reps, device,
+                                       "backup_kernel", flush_l2=True),
+                jax_route_call_ms=time_ms(jax_route, reps, device),
+                N=N, path_sum=int(paths.sum()), path_max=int(paths.max()))
+        OB.backup_batched(tree, values, spec)
+        log(f"  snapshot after {k} sims on carried trees: descend_rows and "
+            f"backup_rows agree (max errors {errs['descend_rows']:.3g}, "
+            f"{errs['backup_rows']:.3g})")
+    check(bool((tree.n[:, 0] >= sims).all()),
+          "root visits after the search on carried trees < sims")
+    timing["carried"] = carried
+    return errs, timing
+
+
+def in_place_phase(fn, device, names=("descend_rows_kernel",
+                                      "backup_rows_kernel")) -> dict:
+    """Device milliseconds per launch of each kernel in ``names`` over one
+    call of ``fn`` under torch.profiler (on the card; empty on the CPU)."""
+    if torch.device(device).type != "cuda":
+        fn()
+        return {}
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        fn()
+        sync(device)
+    out = {}
+    for name in names:
+        hits = [e for e in _device_kernels(prof) if name in e.key]
+        count = sum(e.count for e in hits)
+        check(count > 0, f"profiler saw no launch of {name}")
+        out[name] = (sum(e.self_device_time_total for e in hits) / 1e3
+                     / count, count)
+    return out
 
 
 STAGES = ("descend", "expand", "network", "install", "backup")
@@ -611,9 +899,7 @@ def breakdown_phase(env, eval_fn, spec, batch: int, sims: int, device):
     if not cuda:
         return out
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=PROFILED) as prof:
         t0 = time.perf_counter()
         search(lambda i: None)
         sync(device)
@@ -637,41 +923,49 @@ def breakdown_phase(env, eval_fn, spec, batch: int, sims: int, device):
     return out
 
 
-def kernel_bounds(timing, batch: int) -> dict:
-    """Each kernel's bound (ms, "bytes" or "operations") from the data of
-    the snapshot it was timed on (see PERF.md)."""
-    d, b = timing["descend"], timing["backup"]
-    # descend: the bytes its walks need (_descend_bytes); operations: one
-    # compare per row per walk step.
-    d_ops = d["depth_sum"] * (d["N"] - 1)
-    # backup: per path edge, parent, player, n, q, v read and n, q, v written
-    # (32 bytes) and about 12 float operations; per game leaf, value,
-    # max_depth read and the root's n, v, player touched (36 bytes).
-    b_bytes = b["path_sum"] * 32 + batch * 36
-    b_ops = b["path_sum"] * 12
-    out = {}
-    for name, nbytes, ops in (("descend", d["bytes"], d_ops),
-                              ("backup", b_bytes, b_ops)):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
-        out[name] = (max(t_bytes, t_ops),
-                     "bytes" if t_bytes >= t_ops else "operations")
-    return out
+def kernel_bound(kind: str, t: dict, batch: int) -> tuple:
+    """A kernel's bound (ms, "bytes" or "operations") from the data of the
+    snapshot it was timed on (see PERF.md); ``kind`` is "descend" or
+    "backup", in either layout."""
+    if kind == "descend":
+        # The bytes its walks need (_descend_bytes); operations: one
+        # compare per row per walk step.
+        nbytes, ops = t["bytes"], t["depth_sum"] * (t["N"] - 1)
+    else:
+        # Per path edge, parent, player, n, q, v read and n, q, v written
+        # (32 bytes) and about 12 float operations; per game leaf, value,
+        # max_depth read and the root's n, v, player touched (36 bytes).
+        nbytes, ops = t["path_sum"] * 32 + batch * 36, t["path_sum"] * 12
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+#: The kernels line's records: name, source, the TPU kernel's function
+#: that the kernel replaces, and its kind for ``kernel_bound`` (which
+#: counts a walk's or a path's work alike in both layouts).
+RECORDS = (
+    ("descend", "alphazero_general_tpu_torch/csrc/descend.cu",
+     "alphazero_general_tpu/ops/descend.py:44", "descend"),
+    ("backup", "alphazero_general_tpu_torch/csrc/backup.cu",
+     "alphazero_general_tpu/ops/backup.py:26", "backup"),
+    ("descend_rows", "alphazero_general_tpu_torch/csrc/descend.cu",
+     "alphazero_general_tpu/ops/descend.py:198", "descend"),
+    ("backup_rows", "alphazero_general_tpu_torch/csrc/backup.cu",
+     "alphazero_general_tpu/ops/backup.py:101", "backup"),
+)
 
 
 def kernel_records(errs, timing, launches, batch: int):
     """The per-kernel JSON records. ``ms`` is the device time of one launch
     with L2 flushed before it, on the snapshot the bound is computed from;
     ``ms_l2_warm`` the same launch back to back with its inputs in L2;
-    ``host_ms`` the host's time per wrapper call."""
-    bounds = kernel_bounds(timing, batch)
+    ``host_ms`` the host's time per wrapper call. ``timing`` holds each
+    record's timings by name."""
     out = []
-    for name, src, replaces in (
-            ("descend", "alphazero_general_tpu_torch/csrc/descend.cu",
-             "alphazero_general_tpu/ops/descend.py:44"),
-            ("backup", "alphazero_general_tpu_torch/csrc/backup.cu",
-             "alphazero_general_tpu/ops/backup.py:26")):
+    for name, src, replaces, kind in RECORDS:
         t = timing[name]
+        bound = kernel_bound(kind, t, batch)
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
@@ -679,16 +973,25 @@ def kernel_records(errs, timing, launches, batch: int):
             "ms": t["ms"], "ms_l2_warm": t["ms_l2_warm"],
             "call_ms": t["call_ms"], "host_ms": t["host_ms"],
             "plain_ms": t["plain_ms"],
-            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "library_ms": None, "N": timing["descend"]["N"], "B": batch,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None, "N": t["N"], "B": batch,
         })
     return out
+
+
+def log_timing(name: str, t: dict) -> None:
+    bound = kernel_bound(name.split("_")[0], t, GAMES)
+    log(f"  {name} at B={GAMES}, N={t['N']}: {t['ms']:.4f} ms of device time "
+        f"per launch with L2 flushed, {t['ms_l2_warm']:.4f} ms back to back, "
+        f"{t['call_ms']:.4f} ms per wrapper call, {t['host_ms']:.4f} ms of "
+        f"host time per call, plain {t['plain_ms']:.2f} ms; bound "
+        f"{bound[0]:.6f} ms ({bound[1]})")
 
 
 def main() -> int:
     t_all = time.perf_counter()
     t0 = time.perf_counter()
-    name, count, smi = device_phase()
+    name, device_count, smi = device_phase()
     device = "cuda:0"
     log(f"phase device: {time.perf_counter() - t0:.1f} s")
 
@@ -706,21 +1009,15 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"  a one-element fill: {launch_floor_ms(device):.4f} ms of device "
         "time per launch (the least a kernel takes)")
-    errs = {"descend": 0.0, "backup": 0.0}
+    errs = dict.fromkeys(COUNTED, 0.0)
     timings = {}
     for sims in (SIMS_FULL, SIMS_FAST):
         e, timings[sims] = kernel_phase(env, net.make_eval_fn(), spec, GAMES,
                                         sims, SNAPSHOTS[sims], device)
-        errs = {k: max(errs[k], e[k]) for k in errs}
-        t, bounds = timings[sims], kernel_bounds(timings[sims], GAMES)
+        errs.update({k: max(errs[k], e[k]) for k in e})
+        t = timings[sims]
         for k in ("descend", "backup"):
-            log(f"  {k} at B={GAMES}, N={t['descend']['N']}: "
-                f"{t[k]['ms']:.4f} ms of device time per launch with L2 "
-                f"flushed, {t[k]['ms_l2_warm']:.4f} ms back to back, "
-                f"{t[k]['call_ms']:.4f} ms per wrapper call, "
-                f"{t[k]['host_ms']:.4f} ms of host time per call, plain "
-                f"{t[k]['plain_ms']:.2f} ms; bound {bounds[k][0]:.6f} ms "
-                f"({bounds[k][1]})")
+            log_timing(k, t[k])
         log("  backup with L2 flushed by threads a block: " + ", ".join(
             f"{th}: {ms:.4f} ms"
             for th, ms in t["backup"]["ms_by_threads"].items()))
@@ -729,7 +1026,7 @@ def main() -> int:
             f"{t['descend']['depth_max']}); backup walks "
             f"{t['backup']['path_sum']:,} path edges (longest path "
             f"{t['backup']['path_max']})")
-    timing = timings[SIMS_FULL]
+    timing = dict(timings[SIMS_FULL])
     log(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -739,14 +1036,61 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reference_phase(env, device)
+    reference_reuse_phase(env, device)
     log(f"phase reference: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     sp = selfplay_phase(env, net.model, cfg, GAMES, CYCLE, device)
+    launches = {k: sp["launches"][k] for k in ("descend", "backup")}
     log(f"  self-play: {sp['sims_per_s']:,.0f} sims/s over "
         f"{len(sp['moves'])} moves; launches {sp['launches']}; peak memory "
         f"{sp['peak_bytes'] / 2**30:.2f} GiB; card: {smi}")
     log(f"phase self-play: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    reuse_cfg = SelfPlayConfig.from_args(
+        get_args(args, reuse_tree=True), env.NUM_PLAYERS, env.HAS_DRAW)
+    openings = random_openings(env, GAMES, 6,
+                               torch.Generator(device).manual_seed(SEED + 6),
+                               device)
+    rp = selfplay_phase(env, net.model, reuse_cfg, GAMES, REUSE_CYCLE, device,
+                        openings=openings)
+    launches.update({k: rp["launches"][k]
+                     for k in ("descend_rows", "backup_rows")})
+    log(f"  reuse self-play (N = {reuse_cfg.capacity + 1}): "
+        f"{rp['sims_per_s']:,.0f} sims/s over {len(rp['moves'])} moves "
+        f"(fresh trees, same run: {sp['sims_per_s']:,.0f}); launches "
+        f"{rp['launches']}; restarts: {rp['restarts']['done']} done, "
+        f"{rp['restarts']['overflow']} overflow; trees carried into the "
+        f"next move: {rp['carried']} of {GAMES}; peak memory "
+        f"{rp['peak_bytes'] / 2**30:.2f} GiB; card: {smi}")
+    e, rows_timing = rows_kernel_phase(env, net.make_eval_fn(), spec,
+                                       rp["carry"].trees, SIMS_FULL,
+                                       REUSE_SNAPSHOTS, device)
+    errs.update({k: max(errs[k], e[k]) for k in e})
+    log(f"  the search on carried trees started with {rows_timing['carried']}"
+        f" of {GAMES} trees carried")
+    for k in ("descend_rows", "backup_rows"):
+        t = rows_timing[k]
+        timing[k] = t
+        log_timing(k, t)
+        log(f"  yardstick, the JAX package's route for {k} on the card "
+            f"(columns transposed to [N, B], the game-minor kernel"
+            f"{', results transposed back' if k == 'backup_rows' else ''}):"
+            f" {t['jax_route_ms']:.4f} ms of device time with L2 flushed, "
+            f"{t['jax_route_call_ms']:.4f} ms per call")
+    log(f"  descend_rows needs {timing['descend_rows']['bytes']:,} bytes over "
+        f"{timing['descend_rows']['depth_sum']:,} walk steps (deepest walk "
+        f"{timing['descend_rows']['depth_max']}); backup_rows walks "
+        f"{timing['backup_rows']['path_sum']:,} path edges (longest path "
+        f"{timing['backup_rows']['path_max']})")
+    placed = in_place_phase(
+        lambda: rp["fns"]["fast"](rp["carry"], generator=rp["generator"]),
+        device)
+    for k, (ms, seen) in placed.items():
+        log(f"  in place over one fast reuse move: {k} {ms:.4f} ms per "
+            f"launch over {seen} launches")
+    log(f"phase reuse: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     for sims in (SIMS_FAST, SIMS_FULL):
@@ -755,10 +1099,10 @@ def main() -> int:
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
     log(smi)
-    log(json.dumps({"kernels": kernel_records(errs, timing, sp["launches"],
+    log(json.dumps({"kernels": kernel_records(errs, timing, launches,
                                               GAMES)}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                           "count": count}}))
+                                           "count": device_count}}))
     return 0
 
 

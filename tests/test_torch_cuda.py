@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card: each against its plain PyTorch version, and
-a whole search on the card against the same search on the CPU.
+"""The CUDA kernels on the card: each against its plain PyTorch version, in
+both tree layouts, a whole search and a reuse move on the card against the
+same on the CPU, and the wrappers' input checks.
 
 Every test here is marked ``gpu`` and skips, by a decision taken inside
 the test, where there is no CUDA device. This file imports neither JAX nor
@@ -21,6 +22,7 @@ from alphazero_general_tpu_torch.mcts.tree import NBP_NONE, SearchSpec
 from alphazero_general_tpu_torch.mcts.tree_t import init_tree_t
 from alphazero_general_tpu_torch.ops import backup as OB
 from alphazero_general_tpu_torch.ops import descend as OD
+from alphazero_general_tpu_torch.selfplay import selfplay as SP
 from alphazero_general_tpu_torch.utils.random_tree import random_tree
 
 COLUMNS = ("parent", "parent_action", "n", "q", "v", "edge_prior", "eany",
@@ -249,3 +251,126 @@ def test_cuda_descend_raises_for_trees_too_large_to_stage():
     with pytest.raises(ValueError, match="shared memory"):
         OD.descend_columns(*big, SearchSpec())
     assert OD.descend_columns.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [2048, 1000, 7])
+@pytest.mark.parametrize("N", [2, 403, 2048, 7300])
+def test_cuda_rows_kernels_match_plain_on_random_trees(N, B):
+    """Both batch-major kernels bit for bit against their plain versions on
+    random trees transposed to [B, N]: N = 403 (the production reuse tree,
+    N % 4 != 0, so a game's row is not 16-byte aligned), N = 2048 (more
+    than 48 KB of shared memory a block) and N = 7300 (4 games a block),
+    with full, ragged and tiny batches."""
+    dev = _cuda()
+    columns = set(COLUMNS) | {"player"}
+    tree = {k: torch.from_numpy(np.ascontiguousarray(x.T) if k in columns
+                                else x).to(dev)
+            for k, x in random_tree(N, B, seed=N + B + 1).items()}
+    spec = SearchSpec(**SPEC_KW)
+    cols = [tree[c] for c in COLUMNS]
+    before = OD.descend_rows.launches
+    got = OD.descend_rows(*cols, spec)
+    torch.cuda.synchronize()
+    assert OD.descend_rows.launches == before + 1
+    want = OD.descend_plain(*(c.t() for c in cols), spec.cpuct,
+                            spec.fpu_reduction)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+    args = [tree[k] for k in ("parent", "player", "leaf", "value",
+                              "max_depth")]
+    k_nqv = [tree[k].clone() for k in "nqv"]
+    p_nqv = [tree[k].clone() for k in "nqv"]
+    before = OB.backup_rows_.launches
+    OB.backup_rows_(*args, *k_nqv, spec)
+    torch.cuda.synchronize()
+    assert OB.backup_rows_.launches == before + 1
+    OB.backup_plain_(args[0].t(), args[1].t(), *args[2:],
+                     *(x.t() for x in p_nqv), spec)
+    for g, w in zip(k_nqv, p_nqv):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+def _reuse_moves(dev, batch=256, moves=3):
+    """Reuse moves (fast, fast, full) without random draws in the search,
+    with the same Gumbel noise on every device."""
+    env = get_env("connect4")
+    cfg = SP.SelfPlayConfig(sims_full=24, sims_fast=8, reuse_tree=True,
+                            spec=SearchSpec(**dict(SPEC_KW, tie_noise=0.0)))
+    states = _openings(batch, dev)
+    carry = SP.SelfPlayState(
+        env_state=states,
+        temps=torch.ones(batch, device=dev),
+        games_played=torch.zeros((), dtype=torch.int32, device=dev),
+        move_count=torch.zeros((), dtype=torch.int32, device=dev),
+        trees=T.init_tree(env, states, cfg.capacity, 3))
+    rng = np.random.default_rng(5)
+    records = []
+    for k in range(moves):
+        sims = cfg.sims_full if k == moves - 1 else cfg.sims_fast
+        gumbel = torch.from_numpy(rng.gumbel(size=(batch, 7)).astype(
+            np.float32)).to(dev)
+        carry, rec = SP.move_step(env, cfg, _eval_fn, carry, sims,
+                                  gumbel=gumbel)
+        records.append(rec)
+    return carry, records
+
+
+@pytest.mark.gpu
+def test_cuda_reuse_moves_match_cpu():
+    """Reuse moves through the batch-major kernels on the card against the
+    same moves through the plain versions on the CPU: actions equal, the
+    carried trees' links and visits equal, values within 1e-6."""
+    dev = _cuda()
+    before = (OD.descend_rows.launches, OB.backup_rows_.launches,
+              OD.descend_columns.launches, OB.backup_columns_.launches)
+    got, got_recs = _reuse_moves(dev)
+    torch.cuda.synchronize()
+    sims = 8 + 8 + 24
+    assert (OD.descend_rows.launches - before[0],
+            OB.backup_rows_.launches - before[1],
+            OD.descend_columns.launches - before[2],
+            OB.backup_columns_.launches - before[3]) == (sims, sims, 0, 0)
+    want, want_recs = _reuse_moves("cpu")
+    for g, w in zip(got_recs, want_recs):
+        assert torch.equal(g.action.cpu(), w.action)
+        torch.testing.assert_close(g.pi.cpu(), w.pi, rtol=1e-6, atol=1e-6)
+    gt, wt = got.trees, want.trees
+    assert (gt.next_free > 1).any()
+    for name in ("n", "parent", "parent_action", "nba", "next_free"):
+        a, b = getattr(gt, name).cpu(), getattr(wt, name)
+        if a.dim() == 2:
+            a, b = a[:, :-1], b[:, :-1]
+        assert torch.equal(a, b), name
+    for name in ("q", "v", "nbp"):
+        torch.testing.assert_close(getattr(gt, name)[:, :-1].cpu(),
+                                   getattr(wt, name)[:, :-1], rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_rows_wrappers_reject_bad_inputs():
+    """A CUDA tensor gets the kernel or an exception, never the plain
+    version."""
+    dev = _cuda()
+    cols = [torch.from_numpy(x).t().contiguous().to(dev)
+            for x in edge_case_tree()]
+    spec = SearchSpec()
+    before = (OD.descend_rows.launches, OB.backup_rows_.launches)
+    with pytest.raises(ValueError):  # not contiguous
+        OD.descend_rows(*(c.t().contiguous().t() for c in cols), spec)
+    with pytest.raises(ValueError):  # mixed devices
+        OD.descend_rows(cols[0].cpu(), *cols[1:], spec)
+    big = [torch.zeros((6, OD.MAX_NODES + 1), dtype=c.dtype, device=dev)
+           for c in cols]
+    with pytest.raises(ValueError, match="shared memory"):
+        OD.descend_rows(*big, spec)
+    leaf = torch.zeros(6, dtype=torch.int32, device=dev)
+    n, q, v = cols[2].clone(), cols[3].clone(), cols[4].clone()
+    with pytest.raises(ValueError):  # mixed devices
+        OB.backup_rows_(cols[0], cols[0], leaf.cpu(), torch.zeros(
+            6, 3, device=dev), leaf, n, q, v, spec)
+    with pytest.raises(ValueError):  # not contiguous
+        OB.backup_rows_(cols[0], cols[0], leaf, torch.zeros(
+            6, 3, device=dev), leaf, n.t().contiguous().t(), q, v, spec)
+    assert (OD.descend_rows.launches, OB.backup_rows_.launches) == before

@@ -51,6 +51,25 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     assert f"imported {len(mods)}" in out.stdout
 
 
+def test_every_port_module_imports_first():
+    """Each module imports in a process where no other module of the port
+    is loaded yet: no import cycle among them."""
+    mods = list(_port_modules())
+    code = "\n".join([
+        "import importlib, sys",
+        f"for m in {mods!r}:",
+        "    for name in [k for k in sys.modules",
+        "                 if k.split('.')[0] == 'alphazero_general_tpu_torch']:",
+        "        del sys.modules[name]",
+        "    importlib.import_module(m)",
+        "print('imported', len(" + repr(mods) + "))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert f"imported {len(mods)}" in out.stdout
+
+
 def _imported_names(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -91,9 +110,9 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path):
 
 
 def test_chip_smoke_phases_rehearse_on_cpu():
-    """The kernel, reference, self-play and breakdown phases at a tiny size
-    on the CPU, where every wrapper runs its plain version (so no launches
-    count)."""
+    """The kernel, reference, self-play, reuse and breakdown phases at a
+    tiny size on the CPU, where every wrapper runs its plain version (so no
+    launches count), and the kernels line with its four records."""
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke as C
@@ -116,19 +135,38 @@ def test_chip_smoke_phases_rehearse_on_cpu():
                                   (4, 11), "cpu", reps=1)
     assert errs == {"descend": 0.0, "backup": 0.0}
     assert C.random_tree_phase(spec, "cpu", nodes=(2, 40),
-                               batches=(9,)) == errs
+                               batches=(9,)) == dict.fromkeys(C.COUNTED, 0.0)
     C.reference_phase(env, "cpu", batch=8, sims=10)
+    C.reference_reuse_phase(env, "cpu", batch=8, sims=(4, 10))
     cfg = SelfPlayConfig(sims_full=12, sims_fast=4, spec=spec)
     sp = C.selfplay_phase(env, net.model, cfg, 8, C.CYCLE, "cpu")
-    assert sp["launches"] == {"descend": 0, "backup": 0}
-    records = C.kernel_records(errs, timing, sp["launches"], 8)
+    assert sp["launches"] == dict.fromkeys(C.COUNTED, 0)
+    reuse_cfg = cfg._replace(reuse_tree=True)
+    openings = C.random_openings(env, 8, 6, torch.Generator().manual_seed(0),
+                                 "cpu")
+    rp = C.selfplay_phase(env, net.model, reuse_cfg, 8, C.REUSE_CYCLE, "cpu",
+                          openings=openings)
+    assert rp["launches"] == dict.fromkeys(C.COUNTED, 0)
+    assert rp["carried"] > 0 and rp["carry"].trees.capacity == 26
+    rows_errs, rows_timing = C.rows_kernel_phase(
+        env, net.make_eval_fn(), spec, rp["carry"].trees, 12, (0, 5, 11),
+        "cpu", reps=1)
+    assert rows_errs == {"descend_rows": 0.0, "backup_rows": 0.0}
+    assert C.in_place_phase(lambda: None, "cpu") == {}
+    timing.update(rows_timing)
+    records = C.kernel_records(dict(errs, **rows_errs), timing,
+                               sp["launches"], 8)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "host_ms"}
-    assert [r["name"] for r in records] == ["descend", "backup"]
+            "host_ms", "N", "B"}
+    assert [r["name"] for r in records] == ["descend", "backup",
+                                            "descend_rows", "backup_rows"]
+    assert [r["N"] for r in records] == [15, 15, 27, 27]
     for r in records:
         assert keys <= set(r)
         assert (REPO / r["source"]).is_file()
         assert r["bound_ms"] > 0
+    for name in ("descend_rows", "backup_rows"):
+        assert rows_timing[name]["jax_route_ms"] > 0
     parts = C.breakdown_phase(env, net.make_eval_fn(), spec, 8, 4, "cpu")
     assert set(parts["host_ms"]) == set(C.STAGES)

@@ -3,7 +3,10 @@
 The plain PyTorch versions (what a CPU tensor runs) are held against the
 JAX kernels in interpret mode on TreeT snapshots taken part-way through a
 JAX search, on seeded random trees (utils/random_tree.py: tiny and ragged
-shapes, long chains, junk in the sink row), and on hand-built edge cases. Integer outputs must be equal;
+shapes, long chains, junk in the sink row) in both layouts (the batch-major
+entry points against JAX's batch-major ones on the trees transposed to
+[B, N]), and on hand-built edge cases. Snapshots of reused trees in
+batch-major layout are in test_torch_reuse.py. Integer outputs must be equal;
 floats agree within rtol 1e-6, atol 1e-7 (the exp of the backup's discount
 may round differently in the last place). The CUDA kernels themselves are
 held against the plain versions by the ``gpu`` tests of test_torch_cuda.py,
@@ -20,7 +23,9 @@ import alphazero_general_tpu.mcts.search as JS
 import alphazero_general_tpu.mcts.tree_t as JTT
 from alphazero_general_tpu.envs.connect4 import Connect4 as JConnect4
 from alphazero_general_tpu.mcts.tree import SearchSpec as JSpec
-from alphazero_general_tpu.ops.backup import backup_batched_pallas_t
+from alphazero_general_tpu.ops.backup import (backup_batched_pallas,
+                                              backup_batched_pallas_t)
+from alphazero_general_tpu.ops.descend import descend_batched_pallas
 from alphazero_general_tpu.ops.descend import descend_batched_t as j_descend_t
 from alphazero_general_tpu_torch.mcts.tree import SearchSpec
 from alphazero_general_tpu_torch.ops import backup as OB
@@ -232,6 +237,65 @@ def test_backup_plain_matches_jax_kernel_on_random_trees(N, B):
     # Every root's n rises, and where there is room, paths below it.
     changed = int((got[0] != torch.from_numpy(nqv[0])).sum())
     assert changed > B or (N == 2 and changed == B)
+
+
+@pytest.mark.parametrize("N,B", RANDOM_SHAPES)
+def test_descend_rows_plain_matches_jax_batch_major_kernel(N, B):
+    """The batch-major walk on random trees transposed to [B, N], against
+    JAX's batch-major entry point (which transposes back to [N, B])."""
+    tree = random_tree(N, B, seed=N * 1000 + B + 2)
+    rows = [np.ascontiguousarray(tree[c].T) for c in COLUMNS]
+    want = descend_batched_pallas(*map(jnp.asarray, rows), JSpec(**SPEC_KW),
+                                  interpret=True)
+    got = OD.descend_rows(*map(torch.from_numpy, rows), SearchSpec(**SPEC_KW))
+    _assert_walks_equal(got, want)
+    # The same walks as the game-minor entry point's on the same trees.
+    cols = OD.descend_columns(*map(torch.from_numpy, (tree[c]
+                                                       for c in COLUMNS)),
+                              SearchSpec(**SPEC_KW))
+    for g, c in zip(got, cols):
+        assert torch.equal(g, c)
+
+
+@pytest.mark.parametrize("N,B", RANDOM_SHAPES)
+def test_backup_rows_plain_matches_jax_batch_major_kernel(N, B):
+    tree = random_tree(N, B, seed=N * 1000 + B + 3)
+    t = lambda x: np.ascontiguousarray(x.T)  # noqa: E731
+    args = [t(tree["parent"]), t(tree["player"]), tree["leaf"],
+            tree["value"], tree["max_depth"]]
+    nqv = [t(tree[k]) for k in ("n", "q", "v")]
+    want = backup_batched_pallas(*map(jnp.asarray, args + nqv),
+                                 JSpec(**SPEC_KW), interpret=True)
+    got = [torch.from_numpy(x.copy()) for x in nqv]
+    OB.backup_rows_(*map(torch.from_numpy, args), *got,
+                    SearchSpec(**SPEC_KW))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+    changed = int((got[0] != torch.from_numpy(nqv[0])).sum())
+    assert changed > B or (N == 2 and changed == B)
+
+
+def test_rows_wrappers_reject_bad_inputs():
+    """The batch-major wrappers check their inputs as the game-minor ones
+    do, with the node axis second."""
+    cols = [torch.from_numpy(x).t().contiguous() for x in edge_case_tree()]
+    spec = SearchSpec()
+    with pytest.raises(TypeError):
+        OD.descend_rows(*cols[:3], cols[3].double(), *cols[4:], spec)
+    with pytest.raises(ValueError):  # one node row: [B, 1]
+        OD.descend_rows(*(c[:, :1] for c in cols), spec)
+    with pytest.raises(ValueError):  # not contiguous
+        OD.descend_rows(*(c.t() for c in cols), spec)
+    n, q, v = cols[2].clone(), cols[3].clone(), cols[4].clone()
+    leaf = torch.zeros(6, dtype=torch.int32)
+    with pytest.raises(ValueError):  # value of the wrong width
+        OB.backup_rows_(cols[0], cols[0], leaf, torch.zeros(6, 2), leaf, n,
+                        q, v, spec)
+    with pytest.raises(ValueError):  # a leaf per row, not per game
+        OB.backup_rows_(cols[0][:4], cols[0][:4], leaf, torch.zeros(4, 3),
+                        leaf[:4], n[:4], q[:4], v[:4], spec)
 
 
 @pytest.mark.parametrize("N,games", [
