@@ -1,0 +1,45 @@
+"""Train an AlphaZero model on one device:
+``python -m alphazero_general_tpu_torch.cli.train <env> [--set KEY=VALUE]
+[--args-file FILE] [--device cuda|cpu]`` — the port of
+alphazero_general_tpu/cli/train.py (reference: alphazero/envs/*/train.py).
+
+Until the int8 self-play tower is ported, pass ``--set
+quant_selfplay=False`` (the default, True, raises).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from alphazero_general_tpu_torch.cli.common import (
+    add_args_overrides, add_device_arg, add_env_arg, resolve_args,
+)
+from alphazero_general_tpu_torch.envs import get_env
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    add_env_arg(p)
+    add_args_overrides(p)
+    add_device_arg(p)
+    ns = p.parse_args(argv)
+
+    env = get_env(ns.env)
+    args = resolve_args(ns)
+
+    from alphazero_general_tpu_torch.models import NNetWrapper
+    from alphazero_general_tpu_torch.train import Coach
+
+    nnet = NNetWrapper(env, args, device=ns.device)
+    coach = Coach(env, nnet, args)
+    try:
+        coach.learn()
+    except KeyboardInterrupt:
+        print("\nInterrupted; checkpoints are saved per-iteration.")
+    finally:
+        coach.writer.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

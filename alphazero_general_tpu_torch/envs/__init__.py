@@ -13,6 +13,10 @@ from alphazero_general_tpu_torch.envs.core import Env, EnvState  # noqa: F401
 _ENVS: Dict[str, Type[Env]] = {Connect4.NAME: Connect4}
 
 
+def list_envs():
+    return sorted(_ENVS)
+
+
 def get_env(name: str) -> Type[Env]:
     if name not in _ENVS:
         raise KeyError(f"Unknown env {name!r}. Available: {sorted(_ENVS)}")

@@ -21,7 +21,8 @@ identical to the one flat loop run here.
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Callable, Optional
 
 import torch
 
@@ -38,8 +39,25 @@ from alphazero_general_tpu_torch.ops.descend import descend_batched, \
 EvalFn = Callable[[torch.Tensor], tuple]
 
 
+@dataclasses.dataclass
+class SearchDraws:
+    """The random draws of one search, given instead of drawn from a
+    generator (tests pass the JAX package's): ``tie`` [sims, B, A], the
+    uniform draws behind simulation k's tie noise; ``gammas`` [B, A], the
+    Gamma draws behind the root's Dirichlet noise (first simulation). A
+    field left None is drawn from the generator where it is needed."""
+
+    tie: Optional[torch.Tensor] = None
+    gammas: Optional[torch.Tensor] = None
+
+    def at(self, k: int):
+        """(gammas, tie) of simulation ``k``."""
+        return (self.gammas if k == 0 else None,
+                None if self.tie is None else self.tie[k])
+
+
 def _leaf_step_t(env, tt, spec, eval_fn, root_adjust: bool, slot: int,
-                 expand_root_only: bool, generator):
+                 expand_root_only: bool, generator, gammas=None, tie=None):
     """Everything of one simulation before the backup: walk, expand,
     evaluate, install the prior. Returns the terminal-resolved values."""
     if expand_root_only:
@@ -53,29 +71,35 @@ def _leaf_step_t(env, tt, spec, eval_fn, root_adjust: bool, slot: int,
     is_term = (leaf_e > 0).any(dim=-1, keepdim=True)
     values = torch.where(is_term, leaf_e, value.to(torch.float32))
     TT.install_prior_t(tt, pi.to(torch.float32), spec, root_adjust, slot,
-                       leaf_valids, generator=generator)
+                       leaf_valids, gammas=gammas, tie=tie,
+                       generator=generator)
     return values
 
 
 def _simulate_step_t(env, tt, spec, eval_fn, root_adjust: bool, slot: int,
-                     expand_root_only: bool = False, generator=None) -> None:
+                     expand_root_only: bool = False, generator=None,
+                     gammas=None, tie=None) -> None:
     """One simulation for every game of ``tt``, in place."""
     values = _leaf_step_t(env, tt, spec, eval_fn, root_adjust, slot,
-                          expand_root_only, generator)
+                          expand_root_only, generator, gammas, tie)
     backup_batched_t(tt, values, spec)
 
 
-def _search_t(env, tt, spec, eval_fn, sims: int, generator):
+def _search_t(env, tt, spec, eval_fn, sims: int, generator, draws):
     """Fresh-tree search: simulation k writes row k of every game."""
+    gammas, tie = draws.at(0)
     _simulate_step_t(env, tt, spec, eval_fn, root_adjust=True, slot=0,
-                     expand_root_only=True, generator=generator)
+                     expand_root_only=True, generator=generator,
+                     gammas=gammas, tie=tie)
     for slot in range(1, sims):
+        _, tie = draws.at(slot)
         _simulate_step_t(env, tt, spec, eval_fn, root_adjust=False,
-                         slot=slot, generator=generator)
+                         slot=slot, generator=generator, tie=tie)
     return tt
 
 
-def _leaf_step(env, tree, spec, eval_fn, root_adjust: bool, generator):
+def _leaf_step(env, tree, spec, eval_fn, root_adjust: bool, generator,
+               gammas=None, tie=None):
     """Everything of one simulation on a batch-major ``tree`` before the
     backup: walk, allocate and expand, evaluate, install the prior. Returns
     the terminal-resolved values."""
@@ -84,21 +108,23 @@ def _leaf_step(env, tree, spec, eval_fn, root_adjust: bool, generator):
     pi, value = eval_fn(T.leaf_observation(env, tree))
     values = T.resolve_value(tree, value.to(torch.float32))
     T.install_prior(tree, pi.to(torch.float32), spec, root_adjust,
-                    generator=generator)
+                    gammas=gammas, tie=tie, generator=generator)
     return values
 
 
 def simulate_step(env, tree, spec, eval_fn, root_adjust: bool,
-                  generator=None) -> None:
+                  generator=None, gammas=None, tie=None) -> None:
     """One simulation for every game of a batch-major ``tree``, in place,
     each game writing at its own ``next_free`` (search.py:83-164 with
     ``uniform_slot=None``, ``expand_root_only=False``)."""
-    values = _leaf_step(env, tree, spec, eval_fn, root_adjust, generator)
+    values = _leaf_step(env, tree, spec, eval_fn, root_adjust, generator,
+                        gammas, tie)
     backup_batched(tree, values, spec)
 
 
 def search(env, tree, spec: SearchSpec, eval_fn: EvalFn, sims: int,
-           generator=None, fresh_tree: bool = True):
+           generator=None, fresh_tree: bool = True,
+           draws: Optional[SearchDraws] = None):
     """Run ``sims`` simulations (MCTS.pyx:165-173) and return the trees,
     updated in place.
 
@@ -109,9 +135,11 @@ def search(env, tree, spec: SearchSpec, eval_fn: EvalFn, sims: int,
 
     Only the first simulation can have the root as its leaf, so only it
     takes the root temperature and noise (MCTS.pyx:247-256). Random draws
-    (root Dirichlet noise, tie noise) come from ``generator``; a spec with
-    ``add_root_noise=False`` and ``tie_noise=0`` draws nothing.
+    (root Dirichlet noise, tie noise) come from ``draws`` where given, else
+    from ``generator``; a spec with ``add_root_noise=False`` and
+    ``tie_noise=0`` draws nothing.
     """
+    draws = draws or SearchDraws()
     if fresh_tree:
         if not isinstance(tree, TT.TreeT):
             raise TypeError("a fresh-tree search takes a TreeT, got "
@@ -119,7 +147,7 @@ def search(env, tree, spec: SearchSpec, eval_fn: EvalFn, sims: int,
         if not 1 <= sims <= tree.capacity:
             raise ValueError(f"sims must be in [1, {tree.capacity}] (the "
                              f"tree's node rows), got {sims}")
-        return _search_t(env, tree, spec, eval_fn, sims, generator)
+        return _search_t(env, tree, spec, eval_fn, sims, generator, draws)
     if not isinstance(tree, T.Tree):
         raise TypeError("a search on carried trees takes a batch-major Tree, "
                         f"got {type(tree).__name__}")
@@ -130,22 +158,26 @@ def search(env, tree, spec: SearchSpec, eval_fn: EvalFn, sims: int,
         raise ValueError(f"sims must be in [1, {room}] (the free rows of the "
                          f"fullest tree), got {sims}")
     for k in range(sims):
+        gammas, tie = draws.at(k)
         simulate_step(env, tree, spec, eval_fn, root_adjust=k == 0,
-                      generator=generator)
+                      generator=generator, gammas=gammas, tie=tie)
     return tree
 
 
-def uniform_eval_fn(action_size: int, value_size: int) -> EvalFn:
-    """Model-free evaluation: uniform policy and zero values (raw search,
-    MCTS.pyx:175-183). The JAX package's ``uniform_value=True`` variant
-    (its warmup agent) is not ported yet."""
+def uniform_eval_fn(action_size: int, value_size: int,
+                    uniform_value: bool = False) -> EvalFn:
+    """Model-free evaluation (search.py:428-444): a uniform policy, and
+    zero values (``uniform_value=False``, raw search, MCTS.pyx:175-183) or
+    values of 1/value_size (``True``, the warmup agent,
+    SelfPlayAgent.pyx:48-52)."""
+    fill = 1.0 / value_size if uniform_value else 0.0
 
     def eval_fn(obs):
         B = obs.shape[0]
         pi = torch.ones((B, action_size), dtype=torch.float32,
                         device=obs.device)
-        value = torch.zeros((B, value_size), dtype=torch.float32,
-                            device=obs.device)
+        value = torch.full((B, value_size), fill, dtype=torch.float32,
+                           device=obs.device)
         return pi, value
 
     return eval_fn

@@ -26,30 +26,46 @@ from torch import nn
 
 
 class Norm(nn.Module):
-    """BatchNorm with running statistics, inference mode (flax
-    ``nn.BatchNorm(use_running_average=True)``, epsilon 1e-5):
+    """BatchNorm as flax's ``nn.BatchNorm`` computes it (epsilon 1e-5):
     ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias`` in float32,
     rounded to the input's dtype.
 
-    Training-mode BatchNorm arrives with the train step in a later slice.
+    In eval mode mean and var are the running statistics. In training mode
+    they are the batch's, over (N, H, W) in float32, with flax's variance
+    ``E[x^2] - E[x]^2`` clipped at 0 (the biased one; ``nn.BatchNorm2d``
+    updates its running variance with the unbiased one, so it is not used
+    here), and the running statistics move by flax's momentum:
+    ``running = momentum * running + (1 - momentum) * batch`` with
+    momentum 0.9 (torch's convention calls this 0.1).
     """
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported yet; call .eval()")
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.to(torch.float32) - self.running_mean.view(shape)) \
-            * mul.view(shape) + self.bias.view(shape)
+        xf = x.to(torch.float32)
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
 
@@ -153,7 +169,8 @@ class ResNet(nn.Module):
 
 
 def build_model(env, args) -> nn.Module:
-    """Model factory from args (NNetWrapper.py:111-117), in eval mode."""
+    """Model factory from args (NNetWrapper.py:111-117), in eval mode.
+    Raises ValueError for the FC net and GroupNorm, not ported yet."""
     if args.get("nnet_type", "resnet") != "resnet":
         raise ValueError(f"nnet_type {args.nnet_type!r} is not ported yet")
     if args.get("norm", "batchnorm") != "batchnorm":

@@ -1,4 +1,5 @@
 from alphazero_general_tpu_torch.selfplay.selfplay import (  # noqa: F401
+    MoveDraws,
     MoveRecord,
     SelfPlayConfig,
     SelfPlayState,

@@ -8,7 +8,8 @@ simulations, the visit-count policy at temperature 1 (the training target)
 and at each game's temperature (the sampling policy), a Gumbel-max sample,
 the env step, and auto-reset of finished games. The host chooses fast or
 full search per move (``make_move_fns``), as the JAX package's production
-runners do.
+runners do; the warmup runner searches ``sims_warmup`` simulations with a
+uniform policy and uniform values instead of the network.
 
 The search tree is fresh every move (a game-minor ``TreeT``), or, with
 ``reuse_tree``, carried across moves in a batch-major ``Tree``: re-rooted
@@ -16,14 +17,15 @@ at the action played (the reference's update_root, MCTS.pyx:185-195) and
 restarted where the game ended, where the kept subtree leaves no room for
 another full search, or where it passed ``reset_threshold`` rows.
 
-Not ported yet: the warmup runner, ``leaf_batch`` > 1, the scanned
-``play_chunk``, and the float16 slimming of move records.
+Not ported yet: ``leaf_batch`` > 1, the scanned ``play_chunk`` (its caller
+is the JAX package's multi-device path), and the sparse policy records of
+action spaces of 512 and more (``make_move_fns`` raises for them).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -31,9 +33,13 @@ from alphazero_general_tpu_torch.envs.core import state_items
 from alphazero_general_tpu_torch.mcts import search as S
 from alphazero_general_tpu_torch.mcts import tree as T
 from alphazero_general_tpu_torch.mcts.tree_t import init_tree_t
-from alphazero_general_tpu_torch.utils.config import (
-    TEMP_MIN, TEMP_SCALE_FACTOR, default_temp_scaling,
+from alphazero_general_tpu_torch.utils.misc import (
+    TEMP_MIN, TEMP_SCALE_FACTOR, const_temp_scaling, default_temp_scaling,
 )
+
+#: Action-space size from which the JAX package ships move records' policy
+#: as exact top-k values and ids (selfplay.py:40); not ported yet.
+_SPARSE_PI_MIN_ACTIONS = 512
 
 
 class SelfPlayConfig(NamedTuple):
@@ -41,8 +47,10 @@ class SelfPlayConfig(NamedTuple):
 
     sims_full: int = 100  # numMCTSSims
     sims_fast: int = 20  # numFastSims
-    sims_warmup: int = 5  # numWarmupSims (only sizes the trees here)
+    sims_warmup: int = 5  # numWarmupSims
+    prob_fast: float = 0.75  # probFastSim (the Coach draws the coin)
     start_temp: float = 1.0  # startTemp
+    const_temp: bool = False  # temp_scaling_fn is const_temp_scaling
     tree_capacity: int = 0  # max_tree_nodes; 0 → sized from the sims
     # Carry each game's search tree across moves, re-rooted at the action
     # played (reuse_tree; the reference's update_root, MCTS.pyx:185-195).
@@ -70,16 +78,16 @@ class SelfPlayConfig(NamedTuple):
         the JAX package's ``from_args`` reads them (selfplay.py:84-113).
         Raises ValueError on a knob whose value the port cannot run: a
         ``leaf_batch`` other than 1, or a ``temp_scaling_fn`` other than
-        the default schedule."""
+        the default schedule and the constant one."""
         leaf_batch = int(args.get("leaf_batch", 1))
         if leaf_batch != 1:
             raise ValueError(f"leaf_batch {leaf_batch} is not ported yet "
                              "(only 1)")
-        if args.get("temp_scaling_fn",
-                     default_temp_scaling) is not default_temp_scaling:
-            raise ValueError("temp_scaling_fn "
-                             f"{args.temp_scaling_fn!r} is not ported yet "
-                             "(only utils.config.default_temp_scaling)")
+        temp_fn = args.get("temp_scaling_fn", default_temp_scaling)
+        if temp_fn not in (default_temp_scaling, const_temp_scaling):
+            raise ValueError(f"temp_scaling_fn {temp_fn!r} is not ported "
+                             "yet (only utils.misc.default_temp_scaling and "
+                             "const_temp_scaling)")
         spec = T.SearchSpec(
             cpuct=float(args.cpuct),
             fpu_reduction=float(args.fpu_reduction),
@@ -95,7 +103,9 @@ class SelfPlayConfig(NamedTuple):
             sims_full=int(args.numMCTSSims),
             sims_fast=int(args.numFastSims),
             sims_warmup=int(args.numWarmupSims),
+            prob_fast=float(args.probFastSim),
             start_temp=float(args.startTemp),
+            const_temp=temp_fn is const_temp_scaling,
             tree_capacity=int(args.get("max_tree_nodes", 0)),
             reuse_tree=bool(args.get("reuse_tree", False)),
             reset_threshold=int(args.get("mctsResetThreshold") or 0),
@@ -118,7 +128,9 @@ class SelfPlayState:
 
 @dataclasses.dataclass
 class MoveRecord:
-    """What one move step emits, per game [B, ...]."""
+    """What one move step emits, per game [B, ...]. The runners of
+    ``make_move_fns`` slim it: obs and pi are None after a fast move and
+    float16 otherwise."""
 
     obs: torch.Tensor  # f32[B, C, H, W] observation before the move
     pi: torch.Tensor  # f32[B, A] visit-count policy at temperature 1
@@ -152,9 +164,21 @@ def init_selfplay(env, batch_size: int, start_temp: float = 1.0,
     )
 
 
-def _update_temps(temps, turns, max_turns: int):
+class MoveDraws(NamedTuple):
+    """The random draws of one move, given instead of drawn from a
+    generator (tests pass the JAX package's): ``gumbel`` [B, A], the noise
+    added to the sampling logits, and the search's draws."""
+
+    gumbel: torch.Tensor
+    search: Optional[S.SearchDraws] = None
+
+
+def _update_temps(cfg: SelfPlayConfig, temps, turns, max_turns: int):
     """default_temp_scaling (utils.py:19-27): halve the temperature, down to
-    TEMP_MIN, every ``TEMP_SCALE_FACTOR * max_turns`` turns."""
+    TEMP_MIN, every ``TEMP_SCALE_FACTOR * max_turns`` turns; with
+    ``cfg.const_temp``, leave it."""
+    if cfg.const_temp:
+        return temps
     period = max(int(TEMP_SCALE_FACTOR * max_turns), 1)
     hit = (turns + 1) % period == 0
     return torch.where(hit, torch.clamp(temps / 2.0, min=TEMP_MIN), temps)
@@ -169,15 +193,24 @@ def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def move_step(env, cfg: SelfPlayConfig, eval_fn, carry: SelfPlayState,
-              sims: int, fast: bool = False, generator=None, gumbel=None):
+              sims: int, fast: bool = False, generator=None, gumbel=None,
+              search_draws: Optional[S.SearchDraws] = None,
+              warmup: bool = False):
     """One move for every game of the batch; returns (carry, MoveRecord).
 
     ``sims`` simulations run on a fresh tree sized to them (at most
     ``cfg.capacity`` rows), or with ``cfg.reuse_tree`` on the carried trees
-    ``carry.trees``, which the search updates in place. Random draws:
-    ``gumbel`` [B, A] is the noise added to the sampling logits; it and the
-    search's draws come from ``generator`` where not given.
+    ``carry.trees``, which the search updates in place. With ``warmup`` the
+    search runs ``cfg.sims_warmup`` simulations of the uniform evaluation
+    with uniform values instead of ``eval_fn`` (SelfPlayAgent.pyx:48-52).
+    Random draws: ``gumbel`` [B, A] is the noise added to the sampling
+    logits, ``search_draws`` the search's; both come from ``generator``
+    where not given.
     """
+    if warmup:
+        eval_fn = S.uniform_eval_fn(env.ACTION_SIZE, cfg.spec.value_size,
+                                    uniform_value=True)
+        sims = cfg.sims_warmup
     states = carry.env_state
     B = carry.temps.shape[0]
     dev = carry.temps.device
@@ -186,16 +219,18 @@ def move_step(env, cfg: SelfPlayConfig, eval_fn, carry: SelfPlayState,
             raise ValueError("reuse_tree carries trees across moves: start "
                              "from init_selfplay(..., cfg=cfg)")
         tree = S.search(env, carry.trees, cfg.spec, eval_fn, sims,
-                        generator=generator, fresh_tree=False)
+                        generator=generator, fresh_tree=False,
+                        draws=search_draws)
         root_visits = tree.n[:, 0].clone()
     else:
         cap = min(cfg.capacity, sims + 2)
         tree = init_tree_t(env, states, cap, cfg.spec.value_size)
-        S.search(env, tree, cfg.spec, eval_fn, sims, generator=generator)
+        S.search(env, tree, cfg.spec, eval_fn, sims, generator=generator,
+                 draws=search_draws)
         root_visits = tree.n[0].clone()
 
     # Temperature update before sampling (SelfPlayAgent.pyx:156-158).
-    temps = _update_temps(carry.temps, states.turns, env.MAX_TURNS)
+    temps = _update_temps(cfg, carry.temps, states.turns, env.MAX_TURNS)
     visits = T.counts(tree)
     pi_full = T.probs(visits, 1.0)
     pi_temp = T.probs(visits, temps)
@@ -252,26 +287,45 @@ def move_step(env, cfg: SelfPlayConfig, eval_fn, carry: SelfPlayState,
 
 def make_move_fns(env, cfg: SelfPlayConfig, apply_fn):
     """Production move runners with the fast/full choice made by the caller
-    (the JAX package's ``make_move_fns``).
+    (the JAX package's ``make_move_fns``, selfplay.py:301-357).
 
     ``apply_fn(obs) -> (log_pi, log_v)``, e.g. the ResNet module. Returns
-    ``{"fast", "full"}`` → ``fn(carry, generator=None, gumbel=None) ->
-    (carry, MoveRecord)``; with ``cfg.reuse_tree`` the carry holds the
-    trees (``init_selfplay(..., cfg=cfg)``). The JAX package's ``warmup``
-    runner is not ported yet.
+    ``{"fast", "full", "warmup"}`` → ``fn(carry, generator=None,
+    gumbel=None, search_draws=None) -> (carry, MoveRecord)``; with
+    ``cfg.reuse_tree`` the carry holds the trees (``init_selfplay(...,
+    cfg=cfg)``).
+
+    The records are slimmed as the JAX package's are: the fast runner
+    returns obs and pi as None (finalize drops fast samples), the others
+    float16 obs and pi (board planes are exact in float16; policy entries
+    round by at most 2^-11 of their value).
     """
+    if env.ACTION_SIZE >= _SPARSE_PI_MIN_ACTIONS:
+        raise ValueError(
+            f"action space {env.ACTION_SIZE} >= {_SPARSE_PI_MIN_ACTIONS}: "
+            "the sparse policy records of large action spaces are not "
+            "ported yet")
 
     def net_eval(obs):
         logp, logv = apply_fn(obs)
         return torch.exp(logp), torch.exp(logv)
 
-    def build(sims, fast):
+    def build(sims, fast, warmup):
         @torch.inference_mode()
-        def run(carry, generator=None, gumbel=None):
-            return move_step(env, cfg, net_eval, carry, sims, fast=fast,
-                             generator=generator, gumbel=gumbel)
+        def run(carry, generator=None, gumbel=None, search_draws=None):
+            carry, rec = move_step(env, cfg, net_eval, carry, sims,
+                                   fast=fast, generator=generator,
+                                   gumbel=gumbel, search_draws=search_draws,
+                                   warmup=warmup)
+            if fast:
+                rec.obs = rec.pi = None
+            else:
+                rec.obs = rec.obs.to(torch.float16)
+                rec.pi = rec.pi.to(torch.float16)
+            return carry, rec
 
         return run
 
-    return {"fast": build(cfg.sims_fast, True),
-            "full": build(cfg.sims_full, False)}
+    return {"fast": build(cfg.sims_fast, True, False),
+            "full": build(cfg.sims_full, False, False),
+            "warmup": build(cfg.sims_warmup, False, True)}

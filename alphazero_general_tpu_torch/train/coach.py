@@ -1,0 +1,546 @@
+"""Coach — the training loop, the port of alphazero_general_tpu/train/
+coach.py (reference: alphazero/Coach.py:153-591), on one device.
+
+One iteration: self-play until ``gamesPerIteration`` games have finished
+(warmup iterations search with the uniform evaluation instead of the
+network), the samples streamed into the iteration's npz files; training
+over the growing history window; an arena against the RawMCTS baseline; an
+arena against the gated self-play model and the gating decision; then the
+run state. Iteration structure, gating rules, window, resume and metric
+tags are the JAX package's.
+
+Random streams: ``_np_rng`` is the JAX Coach's numpy stream, drawn in the
+same order (the fast/full coin of each move, the window permutations and
+the symmetry indices of the train batches). The JAX Coach's key stream
+becomes ``generator``, a ``torch.Generator`` on the device seeded with
+``seed + 1``. A ``draws`` hook, for tests, supplies the draws of self-play
+and arena moves instead: ``draws.selfplay(kind, sims, valids)`` returns a
+``MoveDraws`` for one self-play move and ``draws.arena()`` a per-round
+function ``(t, sims, valids) -> MoveDraws`` for one arena.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from collections import deque
+from glob import glob
+from math import ceil
+
+import numpy as np
+import torch
+
+from alphazero_general_tpu_torch.models.wrapper import NNetWrapper
+from alphazero_general_tpu_torch.selfplay.arena import (
+    ArenaConfig, make_arena_fn, raw_mcts_apply, winrates,
+)
+from alphazero_general_tpu_torch.selfplay.device_window import DeviceWindow
+from alphazero_general_tpu_torch.selfplay.replay import (
+    ReplayStore, StreamingFinalizer, batch_iterator, game_stats_arrays,
+    history_window,
+)
+from alphazero_general_tpu_torch.selfplay.selfplay import (
+    SelfPlayConfig, init_selfplay, make_move_fns,
+)
+from alphazero_general_tpu_torch.utils.config import Args, check_ported
+from alphazero_general_tpu_torch.utils.metrics import make_writer
+from alphazero_general_tpu_torch.utils.misc import Bar, get_iter_file
+from alphazero_general_tpu_torch.utils.trace import PhaseTracer
+
+#: Self-play moves enqueued ahead of the oldest one the host reads back.
+PIPE = 8
+
+
+class Coach:
+    def __init__(self, env, nnet: NNetWrapper, args: Args, draws=None):
+        check_ported(args)
+        self.env = env
+        self.args = args
+        self.args._num_players = env.NUM_PLAYERS + int(env.HAS_DRAW)
+        self.device = nnet.device
+        self.train_net = nnet
+        self.self_play_net = NNetWrapper(env, args, device=self.device)
+        self.draws = draws
+
+        self.ckpt_folder = os.path.join(args.checkpoint, args.run_name)
+        os.makedirs(self.ckpt_folder, exist_ok=True)
+
+        # Resume discovery (Coach.py:165-181).
+        train_iter = args.startIter
+        if args.load_model:
+            networks = sorted(glob(os.path.join(self.ckpt_folder, "*.ckpt")))
+            self.args.startIter = len(networks)
+            if self.args.startIter == 0:
+                self._save_model(self.train_net, 0)
+                self.args.startIter = 1
+            train_iter = self.args.startIter - 1
+            self._load_model(self.train_net, train_iter)
+
+        if args.selfPlayModelIter == 0:
+            self.self_play_iter = 0
+        else:
+            self.self_play_iter = args.selfPlayModelIter or \
+                self._load_run_state().get("self_play_iter", train_iter)
+            self.self_play_iter = min(self.self_play_iter, train_iter)
+        if args.model_gating:
+            self._load_model(self.self_play_net, self.self_play_iter)
+
+        self.gating_counter = 0
+        self.warmup = False
+        self.model_iter = self.args.startIter
+        self.loss_pi = 0.0
+        self.loss_v = 0.0
+        self.sample_time = 0.0
+        self.games_played_iter = 0
+
+        self.store = ReplayStore(args.data, args.run_name)
+        self.writer = make_writer(str(args.get("log_dir", "runs")),
+                                  args.run_name)
+        self.tracer = PhaseTracer(self.writer,
+                                  str(args.get("profile_dir", "") or ""))
+        self._np_rng = np.random.default_rng(int(args.get("seed", 0)))
+        self.generator = torch.Generator(self.device).manual_seed(
+            int(args.get("seed", 0)) + 1)
+        self._cfg = SelfPlayConfig.from_args(args, env.NUM_PLAYERS,
+                                             env.HAS_DRAW)
+        self._move_fns = {}
+        self._arena_fns = {}
+        self._dev_window = None
+
+    # ------------------------------------------------------------- utilities
+    def _save_model(self, net: NNetWrapper, iteration: int) -> None:
+        net.save_checkpoint(self.ckpt_folder, get_iter_file(iteration))
+
+    def _load_model(self, net: NNetWrapper, iteration: int) -> None:
+        net.load_checkpoint(self.ckpt_folder, get_iter_file(iteration))
+
+    def _run_state_path(self) -> str:
+        return os.path.join(self.ckpt_folder, "run_state.json")
+
+    def _load_run_state(self) -> dict:
+        """Gating state kept across restarts (the reference keeps only
+        selfPlayModelIter, through its GUI, main.py:383-387)."""
+        try:
+            with open(self._run_state_path()) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return {}
+
+    def _save_run_state(self) -> None:
+        with open(self._run_state_path(), "w") as f:
+            json.dump({"self_play_iter": self.self_play_iter,
+                       "model_iter": self.model_iter,
+                       "gating_counter": self.gating_counter}, f)
+
+    def _get_move_fns(self, net: NNetWrapper):
+        """The fast/full/warmup runners over ``net``'s model (its weights
+        are loaded in place, so the runners follow every load)."""
+        if id(net) not in self._move_fns:
+            self._move_fns[id(net)] = make_move_fns(self.env, self._cfg,
+                                                    net.model)
+        return self._move_fns[id(net)]
+
+    # ------------------------------------------------------------ main loop
+    def learn(self) -> None:
+        """Iteration loop (Coach.py:225-288)."""
+        while self.model_iter <= self.args.numIters:
+            print(f"------ITER {self.model_iter}------")
+            skip = (
+                self.args.skipSelfPlayIters
+                and self.model_iter <= self.args.skipSelfPlayIters
+            ) or (
+                self.args.train_on_past_data
+                and self.model_iter == self.args.startIter
+            )
+            if not skip:
+                if self.model_iter <= self.args.numWarmupIters:
+                    print("Warmup: random policy and value")
+                    self.warmup = True
+                else:
+                    self.warmup = self.self_play_iter == 0
+                with self.tracer.phase("self_play", self.model_iter):
+                    self.generate_self_play_data(self.model_iter)
+
+            with self.tracer.phase("train", self.model_iter):
+                self.train(self.model_iter)
+
+            if self.args.compareWithBaseline and \
+                    int(self.args.arenaCompareBaseline) > 0 and \
+                    (self.model_iter - 1) % self.args.baselineCompareFreq == 0:
+                with self.tracer.phase("arena_baseline", self.model_iter):
+                    self.compare_to_baseline(self.model_iter)
+
+            if self.args.compareWithPast and \
+                    int(self.args.arenaCompare) > 0 and \
+                    (self.model_iter - 1) % self.args.pastCompareFreq == 0:
+                with self.tracer.phase("arena_past", self.model_iter):
+                    self.compare_to_past(self.model_iter)
+
+            self.writer.add_scalar("win_rate/self_play_model",
+                                   self.self_play_iter, self.model_iter)
+            self.model_iter += 1
+            self._save_run_state()
+
+    # ------------------------------------------------------------- self-play
+    def generate_self_play_data(self, iteration: int) -> None:
+        """Self-play moves until ``gamesPerIteration`` games have finished
+        (Coach.py:290-435). The host reads the finished-game count and the
+        move records ``PIPE`` moves behind the newest move, so the device
+        is never left waiting for it; the records stream into the
+        finalizer, and the samples of games still running at the end are
+        dropped."""
+        batch = int(self.args.process_batch_size)
+        target = int(self.args.gamesPerIteration)
+        # Self-play uses the gated model (Coach.py:337-338).
+        net = self.self_play_net if self.args.model_gating else \
+            self.train_net
+        cfg, fns = self._cfg, self._get_move_fns(net)
+        carry = init_selfplay(self.env, batch, cfg.start_temp,
+                              device=self.device, cfg=cfg)
+
+        symmetric = bool(self.args.symmetricSamples) and \
+            self.env.NUM_SYMMETRIES > 1
+        writer = self.store.writer(
+            iteration, self.env.OBS_SHAPE, self.env.ACTION_SIZE,
+            int(self.args._num_players), raw=symmetric)
+        # Symmetry expansion is left to training time (raw files).
+        fin = StreamingFinalizer(self.env, symmetric, writer.append,
+                                 expand_at_collect=False)
+        stats_win, stats_done = [], []
+        raw, pending = deque(), deque()
+        start = time.time()
+        games_done = moves = simulations = 0
+        sims_of = {"warmup": cfg.sims_warmup, "fast": cfg.sims_fast,
+                   "full": cfg.sims_full}
+
+        def drain_round():
+            w, d, f, o, p = raw.popleft()
+            w = w.cpu().numpy().astype(np.float32)
+            d = d.cpu().numpy()
+            stats_win.append(w)
+            stats_done.append(d)
+            fin.add_round(w, d, f,
+                          obs=None if o is None else o.cpu().numpy(),
+                          pi=None if p is None else p.cpu().numpy())
+
+        bar = Bar(f"Self-play iter {iteration}", max=target)
+        while games_done < target:
+            if self.warmup:
+                kind = "warmup"
+            else:
+                # Batch-global fast/full draw (SelfPlayAgent.pyx:84-86).
+                kind = "fast" if (
+                    self._np_rng.random() < cfg.prob_fast) else "full"
+            d = None
+            if self.draws is not None:
+                d = self.draws.selfplay(
+                    kind, sims_of[kind],
+                    self.env.valid_moves(carry.env_state))
+            carry, rec = fns[kind](
+                carry, generator=self.generator,
+                gumbel=None if d is None else d.gumbel,
+                search_draws=None if d is None else d.search)
+            moves += 1
+            simulations += sims_of[kind]
+            raw.append((rec.win_state, rec.done, kind == "fast", rec.obs,
+                        rec.pi))
+            pending.append(carry.games_played)
+            while len(pending) > PIPE:
+                games_done = int(pending.popleft())
+                self.games_played_iter = games_done
+                drain_round()
+                bar.suffix = f"moves {moves}"
+                bar.goto(min(games_done, target))
+            if moves % 64 == 0:
+                open_rows = sum(len(b[0]) for b in fin._open)
+                print(f"[collect] moves={moves} games={games_done} "
+                      f"open_blocks={len(fin._open)} open_rows={open_rows} "
+                      f"elapsed={time.time() - start:.0f}s", flush=True)
+        games_done = int(carry.games_played)
+        self.games_played_iter = games_done
+        bar.goto(min(games_done, target))
+        bar.finish()
+
+        elapsed = time.time() - start
+        self.sample_time = elapsed / max(games_done, 1)
+
+        while raw:
+            drain_round()
+        fin.finish()
+        n_samples = writer.close()
+        print(f"Saving {n_samples} samples ({games_done} games, "
+              f"{elapsed:.1f}s, {self.sample_time * 1000:.1f} ms/game)")
+
+        wins, draws, avg_len = game_stats_arrays(np.stack(stats_win),
+                                                 np.stack(stats_done))
+        total = max(int(wins.sum()) + draws, 1)
+        for i, w in enumerate(wins):
+            credit = 0.5 * draws if self.args.use_draws_for_winrate else 0.0
+            self.writer.add_scalar(f"win_rate/player{i}",
+                                   (w + credit) / total, iteration)
+        self.writer.add_scalar("win_rate/draws", draws / total, iteration)
+        self.writer.add_scalar("win_rate/avg_game_length", avg_len,
+                               iteration)
+        self.writer.add_scalar("loss/sample_time", self.sample_time,
+                               iteration)
+        # What the iteration ran and kept: the finalizer's sample count,
+        # the games finished, and the moves and simulations searched (each
+        # over the whole batch of games).
+        self.writer.add_scalar("self_play/samples", n_samples, iteration)
+        self.writer.add_scalar("self_play/games", games_done, iteration)
+        self.writer.add_scalar("self_play/moves", moves, iteration)
+        self.writer.add_scalar("self_play/simulations", simulations,
+                               iteration)
+
+    # -------------------------------------------------------------- training
+    def train(self, iteration: int) -> None:
+        """Train over the growing history window (Coach.py:437-525)."""
+        if self.args.train_on_past_data and iteration == self.args.startIter:
+            self._train_on_past_data(iteration)
+            return
+        window = history_window(
+            iteration, int(self.args.minTrainHistoryWindow),
+            int(self.args.maxTrainHistoryWindow),
+            int(self.args.trainHistoryIncrementIters))
+        first = max(1, iteration - window)
+        sym_env = (self.env if bool(self.args.symmetricSamples)
+                   and self.env.NUM_SYMMETRIES > 1 else None)
+        # Device symmetries (default on): the window stays raw and each
+        # train step applies one random symmetry per sample on the device.
+        device_sym = sym_env is not None and bool(
+            self.args.get("deviceSymmetries", True))
+        # Device-resident window (default on): iterations are uploaded to a
+        # ring on the device once; each step ships only row indices.
+        use_window = (bool(self.args.get("deviceWindow", True))
+                      and (sym_env is None or device_sym))
+        data = None
+        if use_window:
+            if self._dev_window is None:
+                n_sym_f = sym_env.NUM_SYMMETRIES if device_sym else 1
+                rows = int(self.args.get("deviceWindowRows", 0)) or max(
+                    int(self.args.get("maxWindowSamples", 4_000_000))
+                    // n_sym_f, 65536)
+                self._dev_window = DeviceWindow(
+                    self.env.OBS_SHAPE, self.env.ACTION_SIZE,
+                    int(self.args._num_players), rows, device=self.device)
+                print(f"[device-window] ring {self._dev_window.rows} rows, "
+                      f"{self._dev_window.nbytes / 2**20:.0f} MB on "
+                      f"{self.device}")
+            self._dev_window.sync(self.store, first, iteration)
+            phys = self._dev_window.indices_for(first, iteration)
+            if not len(phys):
+                print("Warning: no training data found; skipping train step")
+                return
+        else:
+            data = self.store.load_window(
+                first, iteration,
+                max_samples=int(self.args.get("maxWindowSamples",
+                                              4_000_000)),
+                rng=self._np_rng, symmetric_env=sym_env,
+                expand=not device_sym)
+            if data is None:
+                print("Warning: no training data found; skipping train step")
+                return
+        self.train_net.set_device_symmetries(sym_env if device_sym else None)
+        self.train_net.set_device_window(use_window)
+
+        batch_size = int(self.args.train_batch_size)
+        # Sample counts in training units (raw files count times the
+        # symmetry group), from file metadata.
+        counts = [m[0] for i in range(first, iteration + 1)
+                  if (m := self.store.sample_meta(i, sym_env)) is not None]
+        window_units = int(sum(counts))
+        if self.args.autoTrainSteps:
+            if self.args.averageTrainSteps:
+                latest = int(np.mean(counts)) if counts else 0
+            else:
+                meta = self.store.sample_meta(iteration, sym_env)
+                latest = meta[0] if meta else 0
+            train_steps = max(latest // batch_size, 1)
+        else:
+            train_steps = int(self.args.train_steps_per_iteration)
+        n_sym = sym_env.NUM_SYMMETRIES if device_sym else 1
+
+        if use_window:
+            expected_rows = window_units // n_sym
+            if len(phys) < expected_rows:
+                print(f"[device-window] window degraded: {len(phys)} of "
+                      f"{expected_rows} rows resident (ring capacity "
+                      f"{self._dev_window.rows}); raise deviceWindowRows "
+                      "to keep the full window")
+            bufs = self._dev_window.buffers
+            resident_rows = len(phys)
+
+            def batches():
+                # The host feed's shuffled epochs without replacement, drawn
+                # by the same Generator; only the gather is on the device.
+                while True:
+                    order = self._np_rng.permutation(len(phys))
+                    end = len(phys) - (len(phys) % batch_size)
+                    if end == 0:
+                        end = len(phys)  # tiny window: one short batch
+                    for s0 in range(0, end, batch_size):
+                        idx = phys[order[s0:s0 + batch_size]]
+                        b = bufs + (idx,)
+                        if device_sym:
+                            b = b + (self._np_rng.integers(
+                                0, n_sym, size=len(idx), dtype=np.int32),)
+                        yield b
+        else:
+            resident_rows = len(data[0])
+
+            def batches():
+                while True:
+                    for b in batch_iterator(data, batch_size, self._np_rng):
+                        if device_sym:
+                            b = b + (self._np_rng.integers(
+                                0, n_sym, size=len(b[0]), dtype=np.int32),)
+                        yield b
+
+        bar = Bar(f"Train iter {iteration}", max=train_steps)
+
+        def progress(step, total, lpi, lv):
+            bar.suffix = f"lpi {lpi:.3f} lv {lv:.3f}"
+            bar.goto(step)
+
+        self.loss_pi, self.loss_v = self.train_net.train(
+            batches(), train_steps, iteration=iteration, callback=progress)
+        bar.finish()
+        seen = train_steps * batch_size
+        self.writer.add_scalar("train/window_samples", window_units,
+                               iteration)
+        self.writer.add_scalar("train/samples_seen", seen, iteration)
+        self.writer.add_scalar("train/effective_epochs",
+                               seen / max(window_units, 1), iteration)
+        self.writer.add_scalar("train/window_rows_resident", resident_rows,
+                               iteration)
+        self.writer.add_scalar("train/steps", train_steps, iteration)
+        self.writer.add_scalar("loss/policy", self.loss_pi, iteration)
+        self.writer.add_scalar("loss/value", self.loss_v, iteration)
+        self.writer.add_scalar("loss/total", self.loss_pi + self.loss_v,
+                               iteration)
+        self._save_model(self.train_net, iteration)
+
+    def _train_on_past_data(self, iteration: int) -> None:
+        """One-shot chunked pre-training from a previous run's sample files
+        (Coach.py:486-505)."""
+        past = ReplayStore(self.args.data, self.args.past_data_run_name)
+        total_iters = past.num_iterations()
+        chunk = int(self.args.past_data_chunk_size)
+        num_chunks = ceil(total_iters / chunk) if total_iters else 0
+        print(f'Training on past data from run '
+              f'"{self.args.past_data_run_name}" in {num_chunks} chunks of '
+              f'{chunk} iterations ({total_iters} iterations in total).')
+        self.train_net.set_device_window(False)
+        self.train_net.set_device_symmetries(None)
+        batch_size = int(self.args.train_batch_size)
+        start = 1
+        for _ in range(num_chunks):
+            end = min(start + chunk - 1, total_iters)
+            data = past.load_window(
+                start, end,
+                max_samples=int(self.args.get("maxWindowSamples",
+                                              4_000_000)),
+                rng=self._np_rng,
+                symmetric_env=(self.env if bool(self.args.symmetricSamples)
+                               and self.env.NUM_SYMMETRIES > 1 else None))
+            start = end + 1
+            if data is None:
+                continue
+            train_steps = max(len(data[0]) // batch_size, 1)
+
+            def batches(data=data):
+                while True:
+                    yield from batch_iterator(data, batch_size,
+                                              self._np_rng)
+
+            self.loss_pi, self.loss_v = self.train_net.train(
+                batches(), train_steps, iteration=iteration)
+        self.writer.add_scalar("loss/policy", self.loss_pi, iteration)
+        self.writer.add_scalar("loss/value", self.loss_v, iteration)
+        self.writer.add_scalar("loss/total", self.loss_pi + self.loss_v,
+                               iteration)
+        self._save_model(self.train_net, iteration)
+
+    # ------------------------------------------------------------ evaluation
+    def _arena(self, kind: str):
+        """The arena against the past model ("past") or the RawMCTS
+        baseline ("baseline"), built once: both read the current weights of
+        the two networks, which loads replace in place."""
+        if kind not in self._arena_fns:
+            cfg = ArenaConfig.from_args(self.args, self.env.NUM_PLAYERS,
+                                        self.env.HAS_DRAW)
+            if kind == "baseline":
+                num_games = int(self.args.arenaCompareBaseline)
+                apply_b = raw_mcts_apply(
+                    self.env.ACTION_SIZE,
+                    self.env.NUM_PLAYERS + int(self.env.HAS_DRAW))
+            else:
+                num_games = int(self.args.arenaCompare)
+                apply_b = self.self_play_net.model
+            self._arena_fns[kind] = (cfg, make_arena_fn(
+                self.env, cfg, self.train_net.model, num_games,
+                apply_fn_b=apply_b, device=self.device))
+        cfg, run = self._arena_fns[kind]
+        result = run(generator=self.generator,
+                     draws=None if self.draws is None else self.draws.arena())
+        step = self.model_iter
+        wins = result.model_wins.tolist()
+        for tag, value in (("rounds", result.rounds),
+                           ("games", result.num_games),
+                           ("wins_new", wins[0]), ("wins_other", wins[1]),
+                           ("draws", result.draws)):
+            self.writer.add_scalar(f"arena_{kind}/{tag}", value, step)
+        return result
+
+    def compare_to_past(self, model_iter: int) -> None:
+        """Arena against the gated self-play model, and the gating decision
+        (Coach.py:527-572)."""
+        self._load_model(self.self_play_net, self.self_play_iter)
+        print(f"PITTING AGAINST ITERATION {self.self_play_iter}")
+        result = self._arena("past")
+        winrate = float(winrates(result, self.args.use_draws_for_winrate)[0])
+        wins = result.model_wins.numpy()
+        draws = float(result.draws)
+        print(f"NEW/PAST WINS : {wins[0]:.0f} / {wins[1]:.0f} ; "
+              f"DRAWS : {draws:.0f}")
+        print(f"NEW MODEL WINRATE : {round(winrate, 3)}")
+        self.writer.add_scalar("win_rate/past", winrate, model_iter)
+        decided = float(wins[0]) + float(wins[1])
+        wr_decided = float(wins[0]) / max(decided, 1.0)
+        self.writer.add_scalar("win_rate/past_decided", wr_decided,
+                               model_iter)
+
+        # Gating (Coach.py:558-572); rule "decided" scores decided games.
+        if str(self.args.get("gatingRule", "reference")) == "decided":
+            gate_pass = (
+                decided >= int(self.args.get("gateMinDecided", 16))
+                and wr_decided >= self.args.min_next_model_winrate)
+            print(f"GATE (decided rule): {wr_decided:.3f} over "
+                  f"{decided:.0f} decided games -> "
+                  f"{'PROMOTE' if gate_pass else 'keep'}")
+        else:
+            gate_pass = winrate >= self.args.min_next_model_winrate
+        if (self.args.model_gating and not gate_pass
+                and (self.args.max_gating_iters is None
+                     or self.gating_counter < self.args.max_gating_iters)):
+            self.gating_counter += 1
+        elif self.args.model_gating:
+            self.self_play_iter = model_iter
+            self._load_model(self.self_play_net, self.self_play_iter)
+            self.gating_counter = 0
+        if self.args.model_gating:
+            print(f"Using model version {self.self_play_iter} for self play.")
+
+    def compare_to_baseline(self, iteration: int) -> None:
+        """Arena against the model-free RawMCTS baseline
+        (Coach.py:574-590)."""
+        print("PITTING AGAINST BASELINE: RawMCTS")
+        result = self._arena("baseline")
+        winrate = float(winrates(result, self.args.use_draws_for_winrate)[0])
+        wins = result.model_wins.numpy()
+        print(f"NEW/BASELINE WINS : {wins[0]:.0f} / {wins[1]:.0f} ; "
+              f"DRAWS : {float(result.draws):.0f}")
+        print(f"NEW MODEL WINRATE : {round(winrate, 3)}")
+        self.writer.add_scalar("win_rate/baseline", winrate, iteration)

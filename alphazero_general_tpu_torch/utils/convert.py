@@ -1,9 +1,11 @@
 """Convert the JAX package's flax variables into the port's ``state_dict``.
 
-Input: ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
-arrays (``jax.device_get`` of ``NNetWrapper.state.variables``), from the
-JAX ResNet (alphazero_general_tpu/models/architectures.py). Output: a
-``state_dict`` for the port's ResNet (models/architectures.py).
+Input: ``{"params": ..., "batch_stats": ...}`` as nested dicts of arrays
+(``NNetWrapper.state.variables``), or a whole ``NetState`` (its params and
+batch stats; e.g. after training), from the JAX ResNet
+(alphazero_general_tpu/models/architectures.py). Leaves may be numpy or
+any array ``np.asarray`` takes. Output: a ``state_dict`` for the port's
+ResNet (models/architectures.py).
 
 * Convolution kernels go from HWIO to OIHW.
 * Dense kernels go from ``[in, out]`` to ``[out, in]``. The JAX heads
@@ -55,7 +57,11 @@ def _mlp(out: Dict[str, torch.Tensor], prefix: str, params) -> None:
 
 
 def resnet_state_dict(variables) -> Dict[str, torch.Tensor]:
-    """flax ResNet variables → the port's ResNet ``state_dict``."""
+    """flax ResNet variables, or a ``NetState``, → the port's ResNet
+    ``state_dict``."""
+    if not isinstance(variables, dict):
+        variables = {"params": variables.params,
+                     "batch_stats": variables.batch_stats}
     p, s = variables["params"], variables["batch_stats"]
     out: Dict[str, torch.Tensor] = {}
     out["stem_conv.weight"] = _conv(p["Conv_0"]["kernel"])

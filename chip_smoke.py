@@ -21,7 +21,10 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    ``RANDOM_NODES`` and batch in ``RANDOM_BATCHES`` (ragged, and a tree
    large enough to force fewer games a descend block), all four kernels,
    bit for bit: the game-minor ones on the trees, the batch-major ones on
-   the trees transposed to [B, N].
+   the trees transposed to [B, N]. Last, the game-minor kernels bit for
+   bit at the snapshots of the two searches that only the Coach runs: an
+   arena round (128 games, 200 simulations, no root noise) and a warmup
+   move (2048 games, 5 simulations of the uniform evaluation).
 4. reference: a small whole search, and two reuse moves, on the card
    against the same on the CPU (plain versions): visit counts and tree
    links equal, q within ``TOL_FLOAT``.
@@ -40,6 +43,22 @@ Phases, each printed with its seconds; the first failure exits non-zero:
 7. breakdown: where the time of a 40- and a 200-simulation search goes,
    per stage (CUDA events and host clock) and per kernel (torch.profiler:
    the kernels' device times in place, between the network's passes).
+8. coach: one Coach cycle of the connect4 preset through
+   ``python -m alphazero_general_tpu_torch.cli.train``'s ``main``, cut as
+   ``COACH_CUTS`` says (two iterations, the first a warmup one; 2048 games
+   an iteration; arenas of 128 games; a gate that always promotes): warmup
+   self-play, train, both arenas and gating, then the network's self-play,
+   train, arenas and gating. Checks
+   its checkpoints, npz samples (counts, pi rows, values), metrics (finite
+   losses, autoTrainSteps' step count, arena wins and draws, the gating
+   decision), and launch counters proving that every self-play and arena
+   simulation went through both game-minor kernels and no plain version
+   ran; and the gate the preset's winrate (0.52) would have decided.
+   Then one float32 train step at full width on the card against the
+   same step on the CPU, a checkpoint round trip, and train steps timed at
+   batch 1024: fed as the Coach feeds them (row indices into the device
+   window, one random symmetry a sample), with the device's busy share
+   from torch.profiler, and fed from host arrays.
 
 The last two lines are the kernels line ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -49,8 +68,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,6 +79,7 @@ import torch
 
 from alphazero_general_tpu_torch.envs import get_env
 from alphazero_general_tpu_torch.envs.core import state_items
+from alphazero_general_tpu_torch.envs.presets import preset_args
 from alphazero_general_tpu_torch.mcts import search as S
 from alphazero_general_tpu_torch.mcts import tree as T
 from alphazero_general_tpu_torch.mcts.tree_t import init_tree_t
@@ -67,6 +89,8 @@ from alphazero_general_tpu_torch.ops import descend as OD
 from alphazero_general_tpu_torch.selfplay import (
     SelfPlayConfig, SelfPlayState, init_selfplay, make_move_fns, move_step,
 )
+from alphazero_general_tpu_torch.selfplay.arena import ArenaConfig
+from alphazero_general_tpu_torch.selfplay.device_window import DeviceWindow
 from alphazero_general_tpu_torch.utils import get_args
 from alphazero_general_tpu_torch.utils.random_tree import (
     DESCEND_COLUMNS, random_tree,
@@ -101,6 +125,9 @@ F32_OPS_PER_S = 67e12
 #: the 50 MB L2, as the network's passes do between launches in a search.
 L2_FLUSH_BYTES = 256 * 2**20
 
+#: A float16 policy row's sum is 1 within this: each entry rounds by at
+#: most 2^-11 of its value.
+PI16_ATOL = 2**-11
 #: Tolerance of the reference phase (a search on the card against the same
 #: search on the CPU: the CPU's float arithmetic may round otherwise).
 TOL_FLOAT = 1e-6
@@ -452,10 +479,11 @@ def _descend_bytes(cols, walk) -> int:
 
 
 def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
-                 device, reps: int = 50):
+                 device, reps: int = 50, timed: bool = True):
     """Both kernels against their plain versions at each snapshot of one
-    fresh-tree search, and their times and the bytes their work needs at
-    the last snapshot."""
+    fresh-tree search, and, with ``timed``, their times and the bytes their
+    work needs at the last snapshot."""
+    last = snapshots[-1] if timed else None
     gen = torch.Generator(device).manual_seed(SEED)
     host_calls = HOST_CALLS if torch.device(device).type == "cuda" else reps
     roots = random_openings(env, batch, 6, gen, device)
@@ -473,7 +501,7 @@ def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
         where = f"at N={tt.parent.shape[0]}, B={batch}, after {slot} sims"
         errs["descend"] = max(errs["descend"],
                               compare_descend(cols, spec, where))
-        if slot == snapshots[-1]:
+        if slot == last:
             walk = OD.descend_columns(*cols, spec)
             launch = lambda: OD.descend_columns(*cols, spec)  # noqa: E731
             timing["descend"] = dict(
@@ -492,7 +520,7 @@ def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
         args = (tt.parent, tt.player, tt.leaf, values, tt.max_depth)
         errs["backup"] = max(errs["backup"], compare_backup(
             args, (tt.n, tt.q, tt.v), spec, where))
-        if slot == snapshots[-1]:
+        if slot == last:
             scratch = [tt.n.clone(), tt.q.clone(), tt.v.clone()]
             paths = _path_lengths(tt.parent, tt.leaf)
 
@@ -669,13 +697,19 @@ def selfplay_phase(env, model, cfg, batch: int, cycle, device,
         else:
             check(bool((rec.root_visits == sims).all()),
                   f"{kind} move: root visits != {sims}")
-        check(rec.pi.shape == (batch, env.ACTION_SIZE)
-              and bool(torch.isfinite(rec.pi).all()),
-              f"{kind} move: policy shape or values wrong")
-        check(bool(torch.allclose(rec.pi.sum(-1),
-                                  torch.ones_like(rec.pi[:, 0]),
-                                  atol=1e-5)),
-              f"{kind} move: a policy row does not sum to 1")
+        if kind == "fast":  # slimmed: fast samples are never stored
+            check(rec.pi is None and rec.obs is None,
+                  "fast move: the record still carries obs or pi")
+        else:
+            check(rec.pi.shape == (batch, env.ACTION_SIZE)
+                  and rec.pi.dtype == torch.float16
+                  and bool(torch.isfinite(rec.pi).all()),
+                  f"{kind} move: policy shape, dtype or values wrong")
+            check(bool(torch.allclose(rec.pi.float().sum(-1),
+                                      torch.ones_like(rec.pi[:, 0],
+                                                      dtype=torch.float32),
+                                      rtol=0, atol=PI16_ATOL)),
+                  f"{kind} move: a policy row does not sum to 1")
         legal = env.valid_moves(before)[torch.arange(batch, device=device),
                                         rec.action.long()]
         check(bool(legal.all()), f"{kind} move: illegal action")
@@ -923,6 +957,277 @@ def breakdown_phase(env, eval_fn, spec, batch: int, sims: int, device):
     return out
 
 
+#: The Coach phase: the connect4 preset (envs/presets.py: 2048 games in
+#: lockstep, 200 full / 40 fast simulations at probFastSim 0.75, ResNet
+#: 128 x 8 with [1024, 256] / [1024] heads, train batch 1024) through
+#: ``cli.train.main``, cut to two iterations (the first a warmup one), one
+#: lockstep batch of games a self-play iteration (preset: 8192 games),
+#: arenas of 128 games (preset: 512), and the float tower (the int8 one is
+#: not ported). The gate promotes whatever wins at least 0 (preset: 0.52),
+#: so that iteration 2 always plays the trained network: a model trained
+#: on one warmup iteration may lose the past arena, and self-play would
+#: stay on the warmup runner.
+COACH_CUTS = dict(numIters=2, numWarmupIters=1, gamesPerIteration=2048,
+                  arenaCompare=128, arenaCompareBaseline=128,
+                  quant_selfplay=False, min_next_model_winrate=0.0)
+#: A float32 train step on the card against the same step on the CPU:
+#: params and batch statistics agree within these (cuDNN's and the CPU's
+#: float32 sums differ in order; TF32 is off).
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5
+#: Batch of that step (full width; the CPU's step sets its size).
+TRAIN_CHECK_BATCH = 256
+#: Train steps timed at the preset's batch and compute dtype.
+TRAIN_TIMED_STEPS = 20
+
+
+def coach_shapes_phase(env, net, device, args) -> dict:
+    """Both game-minor kernels against their plain versions at the shapes
+    that only the Coach cycle gives them, as ``args`` (the Coach's) set
+    them: an arena round's search (``arenaCompare`` games, ``numMCTSSims``
+    simulations, no root noise), held after a quarter and after all but
+    one of its simulations, and a warmup move's (``process_batch_size``
+    games, ``numWarmupSims`` simulations of the uniform evaluation), held
+    after each simulation. Returns the max errors."""
+    errs = {"descend": 0.0, "backup": 0.0}
+    arena = ArenaConfig.from_args(args, env.NUM_PLAYERS, env.HAS_DRAW)
+    warm = SelfPlayConfig.from_args(args, env.NUM_PLAYERS, env.HAS_DRAW)
+    uniform = S.uniform_eval_fn(env.ACTION_SIZE, warm.spec.value_size,
+                                uniform_value=True)
+    for what, eval_fn, spec, batch, sims, snapshots in (
+            ("arena round", net.make_eval_fn(), arena.spec,
+             int(args.arenaCompare), arena.sims,
+             (arena.sims // 4, arena.sims - 1)),
+            ("warmup move", uniform, warm.spec, int(args.process_batch_size),
+             warm.sims_warmup, tuple(range(1, warm.sims_warmup)))):
+        log(f"  the search of a {what}: B={batch}, {sims} simulations")
+        e, _ = kernel_phase(env, eval_fn, spec, batch, sims, snapshots,
+                            device, timed=False)
+        errs = {k: max(errs[k], e[k]) for k in errs}
+    return errs
+
+
+def _read_metrics(path) -> dict:
+    """tag -> {step: value} from a metrics.jsonl."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            r = json.loads(line)
+            out.setdefault(r["tag"], {})[r["step"]] = r["value"]
+    return out
+
+
+class _PlainCounter:
+    """Counts calls of a kernel's plain version while installed in its
+    module (the wrappers look it up there)."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls = 0
+
+    def __call__(self, *a, **k):
+        self.calls += 1
+        return self.fn(*a, **k)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def coach_phase(device, root: str, sets: dict) -> dict:
+    """One Coach cycle through ``cli.train.main`` with the preset cut by
+    ``sets``, in ``root``; then every check of the cycle from its files and
+    metrics, and the launch counters against the searches it ran."""
+    from alphazero_general_tpu_torch.cli import train as cli_train
+    from alphazero_general_tpu_torch.selfplay.replay import ReplayStore
+
+    env = get_env("connect4")
+    dirs = dict(run_name="smoke", checkpoint=f"{root}/checkpoint",
+                data=f"{root}/data", log_dir=f"{root}/runs")
+    argv = ["connect4", "--device", str(torch.device(device).type)]
+    for k, v in {**sets, **dirs}.items():
+        argv += ["--set", f"{k}={v!r}"]
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    sync(device)
+    reset_counts()
+    with _PlainCounter(OD, "descend_plain") as pd, \
+            _PlainCounter(OB, "backup_plain_") as pb:
+        t0 = time.perf_counter()
+        check(cli_train.main(argv) == 0, "cli.train.main did not return 0")
+        sync(device)
+        wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+
+    ckpt = os.path.join(dirs["checkpoint"], "smoke")
+    iters = int(sets["numIters"])
+    for it in range(iters + 1):
+        for ext in (".ckpt", ".json"):
+            check(os.path.isfile(f"{ckpt}/iteration-{it:04d}{ext}"),
+                  f"coach: no checkpoint iteration-{it:04d}{ext}")
+    m = _read_metrics(f"{dirs['log_dir']}/smoke/metrics.jsonl")
+    for prefix in ("loss/", "win_rate/", "time/"):
+        check(any(t.startswith(prefix) for t in m),
+              f"coach: no {prefix}* metric")
+    store = ReplayStore(dirs["data"], "smoke")
+    batch = int(sets.get("train_batch_size", 1024))
+    searches = simulations = 0
+    out = dict(wall=wall, launches=launches, peak_bytes=peak, iters={},
+               games_per_batch=int(sets.get("process_batch_size", GAMES)))
+    sims = int(sets.get("numMCTSSims", 200))
+    prev_gate = 0
+    # The gate the cut replaces: the preset's winrate, whose "keep" branch
+    # the CPU parity tests hold to the JAX Coach.
+    preset_gate = float(preset_args("connect4").min_next_model_winrate)
+    for it in range(1, iters + 1):
+        obs, pi, value = store.load(it)
+        n = int(m["self_play/samples"][it])
+        check(len(obs) == len(pi) == len(value) == n and n > 0,
+              f"coach: iteration {it} stored {len(obs)} samples, the "
+              f"finalizer counted {n}")
+        check(bool(np.isfinite(obs).all()), f"coach: iteration {it} obs")
+        check(np.allclose(pi.astype(np.float32).sum(-1), 1, rtol=0,
+                          atol=PI16_ATOL),
+              f"coach: iteration {it}: a pi row does not sum to 1")
+        check(bool((value.sum(-1) == 1).all() and (value.max(-1) == 1)
+                   .all()), f"coach: iteration {it}: a value is not one-hot")
+        for tag in ("loss/policy", "loss/value"):
+            check(np.isfinite(m[tag][it]), f"coach: {tag} not finite")
+        units = n * env.NUM_SYMMETRIES  # raw files: trained symmetrised
+        check(m["train/steps"][it] == max(units // batch, 1),
+              f"coach: iteration {it} ran {m['train/steps'][it]} train "
+              f"steps, autoTrainSteps gives {max(units // batch, 1)}")
+        rec = dict(samples=n, games=m["self_play/games"][it],
+                   moves=m["self_play/moves"][it],
+                   self_play_sims=m["self_play/simulations"][it],
+                   train_steps=m["train/steps"][it],
+                   loss=(m["loss/policy"][it], m["loss/value"][it]))
+        searches += int(rec["moves"])
+        simulations += int(rec["self_play_sims"])
+        for kind in ("baseline", "past"):
+            a = {t: m[f"arena_{kind}/{t}"][it] for t in
+                 ("rounds", "games", "wins_new", "wins_other", "draws")}
+            check(a["wins_new"] + a["wins_other"] + a["draws"] == a["games"]
+                  == int(sets[{"baseline": "arenaCompareBaseline",
+                               "past": "arenaCompare"}[kind]]),
+                  f"coach: {kind} arena wins and draws != games: {a}")
+            wr = (a["wins_new"] + 0.5 * a["draws"]) / a["games"]
+            check(abs(wr - m[f"win_rate/{kind}"][it]) < 1e-6,
+                  f"coach: {kind} winrate {m[f'win_rate/{kind}'][it]} != "
+                  f"{wr} from its wins and draws")
+            searches += int(a["rounds"])
+            simulations += int(a["rounds"]) * sims
+            rec[kind] = a
+        # Gating under the preset's rule ("reference", no iteration cap).
+        want_gate = it if m["win_rate/past"][it] >= float(
+            sets.get("min_next_model_winrate", 0.52)) else prev_gate
+        check(m["win_rate/self_play_model"][it] == want_gate,
+              f"coach: iteration {it} self_play_iter "
+              f"{m['win_rate/self_play_model'][it]}, the rule gives "
+              f"{want_gate}")
+        prev_gate = want_gate
+        rec["preset_gate"] = (preset_gate, "promote it" if m[
+            "win_rate/past"][it] >= preset_gate else "keep the past model")
+        rec["times"] = {t[5:]: m[t][it] for t in m if t.startswith("time/")}
+        out["iters"][it] = rec
+    expect = dict.fromkeys(COUNTED, 0)
+    if cuda:  # on the CPU the plain versions run and launch nothing
+        expect.update(descend=simulations - searches, backup=simulations)
+        check(pd.calls == 0 and pb.calls == 0,
+              f"coach: plain versions ran on the card ({pd.calls} descend,"
+              f" {pb.calls} backup)")
+    check(launches == expect,
+          f"coach: kernel launches {launches} != expected {expect} "
+          f"({searches} searches, {simulations} simulations)")
+    out.update(searches=searches, simulations=simulations, ckpt=ckpt,
+               store=store)
+    return out
+
+
+def train_check_phase(device, model: dict, batch_rows, reps=TRAIN_TIMED_STEPS,
+                      timed_batch: int = 1024) -> dict:
+    """One float32 train step at full width on ``device`` and on the CPU,
+    from the same weights and batch (with device symmetries): params and
+    batch statistics within TRAIN_RTOL / TRAIN_ATOL. Then a checkpoint of
+    the trained net on ``device``, loaded into a fresh wrapper, must give
+    bit-equal outputs; and ``reps`` train steps at ``timed_batch`` in the
+    model's own compute dtype are timed, fed two ways (below)."""
+    env = get_env("connect4")
+    f32 = get_args(seed=SEED, **dict(model, compute_dtype="float32"))
+    nets = {d: NNetWrapper(env, f32, device=d) for d in (device, "cpu")}
+    nets[device].model.load_state_dict(nets["cpu"].model.state_dict())
+    obs, pi, value = (x[:TRAIN_CHECK_BATCH] for x in batch_rows)
+    sym = np.random.default_rng(SEED).integers(
+        0, env.NUM_SYMMETRIES, len(obs), dtype=np.int32)
+    for net in nets.values():
+        net.set_device_symmetries(env)
+        net.train([(obs, pi, value, sym)], 1)
+    sync(device)
+    err = 0.0
+    want = nets["cpu"].model.state_dict()
+    for k, x in nets[device].model.state_dict().items():
+        x = x.cpu()
+        bad = (x - want[k]).abs() > TRAIN_ATOL + TRAIN_RTOL * want[k].abs()
+        check(not bool(bad.any()), f"train step on {device} != cpu at {k}: "
+              f"max error {(x - want[k]).abs().max().item():.3g}")
+        err = max(err, (x - want[k]).abs().max().item())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        nets[device].save_checkpoint(tmp, "check")
+        back = NNetWrapper.from_checkpoint(env, tmp, "check", device=device)
+    probe = torch.from_numpy(obs.astype(np.float32)).to(device)
+    for a, b in zip(nets[device].process(probe), back.process(probe)):
+        check(bits_equal(a, b), "checkpoint round trip: outputs differ")
+
+    # Timed steps in the model's own compute dtype. "window": as the Coach
+    # feeds them, row indices into the iteration's DeviceWindow and one
+    # random symmetry a sample; "host": the same rows as host arrays.
+    rng = np.random.default_rng(SEED + 7)
+    window = DeviceWindow(env.OBS_SHAPE, env.ACTION_SIZE,
+                          env.NUM_PLAYERS + int(env.HAS_DRAW),
+                          len(batch_rows[0]), device=device)
+    window.add_iteration(1, *batch_rows)
+    phys = window.indices_for(1, 1)
+    take = [rng.integers(0, len(phys), timed_batch) for _ in range(reps + 1)]
+    syms = [rng.integers(0, env.NUM_SYMMETRIES, timed_batch, dtype=np.int32)
+            for _ in take]
+    feeds = {
+        "window": (env, True, [window.buffers + (phys[i], s)
+                               for i, s in zip(take, syms)]),
+        "host": (None, False, [tuple(x[i] for x in batch_rows)
+                               for i in take]),
+    }
+    out = dict(max_err=err)
+    for feed, (sym_env, in_window, batches) in feeds.items():
+        timed = NNetWrapper(env, get_args(seed=SEED, **model), device=device)
+        timed.set_device_symmetries(sym_env)
+        timed.set_device_window(in_window)
+        timed.train(batches[:1], 1)  # warm-up: cuDNN's algorithm choice
+        sync(device)
+        t0 = time.perf_counter()
+        timed.train(batches[1:], reps)
+        sync(device)
+        dt = time.perf_counter() - t0
+        out[feed] = dict(steps_per_s=reps / dt,
+                         samples_per_s=reps * timed_batch / dt)
+        if feed == "window" and torch.device(device).type == "cuda":
+            with torch.profiler.profile(activities=PROFILED) as prof:
+                t0 = time.perf_counter()
+                timed.train(batches[1:], reps)
+                sync(device)
+                window_us = (time.perf_counter() - t0) * 1e6
+            busy_us = sum(e.self_device_time_total
+                          for e in _device_kernels(prof))
+            out[feed].update(busy_ms_per_step=busy_us / 1e3 / reps,
+                             wall_ms_per_step=window_us / 1e3 / reps)
+    return out
+
+
 def kernel_bound(kind: str, t: dict, batch: int) -> tuple:
     """A kernel's bound (ms, "bytes" or "operations") from the data of the
     snapshot it was timed on (see PERF.md); ``kind`` is "descend" or
@@ -979,6 +1284,33 @@ def kernel_records(errs, timing, launches, batch: int):
     return out
 
 
+def log_coach(co: dict, smi: str) -> None:
+    """The Coach phase's numbers, per iteration."""
+    log(f"  coach cycle through cli.train.main: {co['wall']:.1f} s; cuts "
+        f"{COACH_CUTS}; {co['searches']} searches, {co['simulations']} "
+        f"simulations; launches {co['launches']}; peak memory "
+        f"{co['peak_bytes'] / 2**30:.2f} GiB; card: {smi}")
+    for it, r in co["iters"].items():
+        t = r["times"]
+        log(f"  iteration {it}: " + ", ".join(
+            f"time/{k} {v:.2f} s" for k, v in sorted(t.items())))
+        log(f"    self-play: {r['moves']:.0f} moves, {r['games']:.0f} games,"
+            f" {r['samples']:.0f} samples, "
+            f"{co['games_per_batch'] * r['self_play_sims'] / t['self_play']:,.0f}"
+            " sims/s")
+        log(f"    train: {r['train_steps']:.0f} steps, "
+            f"{r['train_steps'] / t['train']:.2f} steps/s over the phase; "
+            f"losses {r['loss'][0]:.4f} / {r['loss'][1]:.4f}")
+        for kind in ("baseline", "past"):
+            a = r[kind]
+            log(f"    arena {kind}: {a['wins_new']:.0f} / "
+                f"{a['wins_other']:.0f} / {a['draws']:.0f} (new / other / "
+                f"draws) in {a['rounds']:.0f} rounds, "
+                f"{a['games'] / t['arena_' + kind]:.2f} games/s")
+        log(f"    gate: the cut gate promoted iteration {it}; the preset's "
+            f"gate of {r['preset_gate'][0]} would {r['preset_gate'][1]}")
+
+
 def log_timing(name: str, t: dict) -> None:
     bound = kernel_bound(name.split("_")[0], t, GAMES)
     log(f"  {name} at B={GAMES}, N={t['N']}: {t['ms']:.4f} ms of device time "
@@ -1033,6 +1365,13 @@ def main() -> int:
     e = random_tree_phase(spec, device)
     errs = {k: max(errs[k], e[k]) for k in errs}
     log(f"phase random trees: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    e = coach_shapes_phase(env, net, device,
+                           preset_args("connect4", **COACH_CUTS))
+    errs.update({k: max(errs[k], e[k]) for k in e})
+    log(f"phase kernels at the Coach's shapes: "
+        f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     reference_phase(env, device)
@@ -1096,6 +1435,26 @@ def main() -> int:
     for sims in (SIMS_FAST, SIMS_FULL):
         breakdown_phase(env, net.make_eval_fn(), spec, GAMES, sims, device)
     log(f"phase breakdown: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        co = coach_phase(device, root, COACH_CUTS)
+        log_coach(co, smi)
+        tc = train_check_phase(device, MODEL, co["store"].load(1))
+    launches.update({k: co["launches"][k] for k in ("descend", "backup")})
+    log(f"  float32 train step, {TRAIN_CHECK_BATCH} samples at full width: "
+        f"card == cpu within rtol {TRAIN_RTOL}, atol {TRAIN_ATOL} (max "
+        f"error {tc['max_err']:.3g}); checkpoint round trip bit-equal")
+    w, h = tc["window"], tc["host"]
+    log(f"  train steps at batch 1024, bfloat16, fed as the Coach feeds "
+        f"them (device window, device symmetries): {w['steps_per_s']:.2f} "
+        f"steps/s = {w['samples_per_s']:,.0f} samples/s; under the "
+        f"profiler, device busy {w['busy_ms_per_step']:.3f} ms of "
+        f"{w['wall_ms_per_step']:.3f} ms a step "
+        f"({100 * w['busy_ms_per_step'] / w['wall_ms_per_step']:.1f}%); "
+        f"fed from host arrays: {h['steps_per_s']:.2f} steps/s = "
+        f"{h['samples_per_s']:,.0f} samples/s; card: {smi}")
+    log(f"phase coach: {time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
     log(smi)

@@ -374,3 +374,80 @@ def test_cuda_rows_wrappers_reject_bad_inputs():
         OB.backup_rows_(cols[0], cols[0], leaf, torch.zeros(
             6, 3, device=dev), leaf, n.t().contiguous().t(), q, v, spec)
     assert (OD.descend_rows.launches, OB.backup_rows_.launches) == before
+
+
+def _arena_draws(seed):
+    """Per-round arena draws from numpy (Gumbel and tie noise), the same
+    numbers on every device."""
+    from alphazero_general_tpu_torch.mcts.search import SearchDraws
+
+    def round_draws(t, sims, valids):
+        rng = np.random.default_rng(seed * 1000 + t)
+        B, A = valids.shape
+        dev = valids.device
+        gumbel = torch.from_numpy(rng.gumbel(size=(B, A)).astype(np.float32))
+        tie = torch.from_numpy(rng.random((sims, B, A)).astype(np.float32))
+        return SP.MoveDraws(gumbel=gumbel.to(dev),
+                            search=SearchDraws(tie=tie.to(dev)))
+
+    return round_draws
+
+
+@pytest.mark.gpu
+def test_cuda_arena_matches_cpu():
+    """A short arena (64 games, 24 simulations, the table evaluation
+    against the RawMCTS baseline) through the kernels on the card, equal to
+    the same arena through the plain versions on the CPU, with the same
+    draws; every simulation launched both game-minor kernels."""
+    from alphazero_general_tpu_torch.selfplay import arena as A
+
+    dev = _cuda()
+    env = get_env("connect4")
+
+    def table_apply(obs):
+        pi, v = _eval_fn(obs)
+        return torch.log(pi), torch.log(v)
+
+    cfg = A.ArenaConfig(sims=24, arena_temp=1.0)
+    fns = [table_apply, A.raw_mcts_apply(7, 3)]
+    before = (OD.descend_columns.launches, OB.backup_columns_.launches)
+    got = A.play_games_multi(env, cfg, fns, 64, draws=_arena_draws(3),
+                             device=dev)
+    launched = (OD.descend_columns.launches - before[0],
+                OB.backup_columns_.launches - before[1])
+    want = A.play_games_multi(env, cfg, fns, 64, draws=_arena_draws(3),
+                              device="cpu")
+    assert torch.equal(got.model_wins, want.model_wins)
+    assert got.draws == want.draws and got.rounds == want.rounds
+    assert got.avg_game_length == want.avg_game_length
+    assert launched == (got.rounds * (cfg.sims - 1), got.rounds * cfg.sims)
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_matches_cpu():
+    """One float32 SGD step (device symmetries on) on the card and on the
+    CPU from the same weights and batch: params and batch statistics
+    within rtol 1e-4, atol 1e-5 (TF32 off; sums in another order)."""
+    from alphazero_general_tpu_torch.models import NNetWrapper
+    from alphazero_general_tpu_torch.utils import get_args
+
+    dev = _cuda()
+    env = get_env("connect4")
+    args = get_args(num_channels=32, depth=2, value_head_channels=8,
+                    policy_head_channels=8, value_dense_layers=[64],
+                    policy_dense_layers=[64], compute_dtype="float32")
+    nets = [NNetWrapper(env, args, device=d) for d in (dev, "cpu")]
+    rng = np.random.default_rng(4)
+    obs = env.observation(_openings(128, "cpu")).numpy().astype(np.float16)
+    pi = rng.dirichlet(np.ones(7), 128).astype(np.float16)
+    value = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 128)]
+    sym = rng.integers(0, 2, 128, dtype=np.int32)
+    losses = []
+    for net in nets:
+        net.set_device_symmetries(env)
+        losses.append(net.train([(obs, pi, value, sym)], 1))
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    want = nets[1].model.state_dict()
+    for k, x in nets[0].model.state_dict().items():
+        np.testing.assert_allclose(x.cpu().numpy(), want[k].numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)

@@ -170,3 +170,43 @@ def test_chip_smoke_phases_rehearse_on_cpu():
         assert rows_timing[name]["jax_route_ms"] > 0
     parts = C.breakdown_phase(env, net.make_eval_fn(), spec, 8, 4, "cpu")
     assert set(parts["host_ms"]) == set(C.STAGES)
+
+
+def test_chip_smoke_coach_phase_rehearses_on_cpu(tmp_path, capsys):
+    """The Coach phase (cli.train.main, then its checks of files, metrics
+    and launch counters) and the train-step check, at a tiny size on the
+    CPU, where no kernel launches; its log lines."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke as C
+    finally:
+        sys.path.remove(str(REPO))
+    tiny_model = dict(num_channels=8, depth=1, value_head_channels=2,
+                      policy_head_channels=2, value_dense_layers=[8],
+                      policy_dense_layers=[8])
+    sets = dict(C.COACH_CUTS, process_batch_size=4, gamesPerIteration=4,
+                numMCTSSims=6, numFastSims=3, train_batch_size=8,
+                arenaCompare=4, arenaCompareBaseline=4, deviceWindowRows=16384,
+                min_next_model_winrate=0.0, **tiny_model)
+    co = C.coach_phase("cpu", str(tmp_path), sets)
+    assert co["launches"] == dict.fromkeys(C.COUNTED, 0)
+    assert co["searches"] > 0 and co["simulations"] > co["searches"]
+    assert sorted(co["iters"]) == [1, 2]
+    assert co["iters"][1]["self_play_sims"] == co["iters"][1]["moves"] * 5
+    C.log_coach(co, "cpu")
+    out = capsys.readouterr().out
+    assert "time/arena_past" in out and "sims/s" in out
+    assert "the preset's gate of 0.52 would" in out
+    tc = C.train_check_phase("cpu", tiny_model, co["store"].load(1),
+                             reps=2, timed_batch=8)
+    assert tc["max_err"] == 0.0
+    assert tc["window"]["steps_per_s"] > 0 and tc["host"]["steps_per_s"] > 0
+    # The kernels at the Coach's own shapes (an arena round, a warmup move).
+    from alphazero_general_tpu_torch.envs import get_env
+    from alphazero_general_tpu_torch.envs.presets import preset_args
+    from alphazero_general_tpu_torch.models import NNetWrapper
+
+    args = preset_args("connect4", **sets)
+    net = NNetWrapper(get_env("connect4"), args, device="cpu")
+    assert C.coach_shapes_phase(get_env("connect4"), net, "cpu", args) == {
+        "descend": 0.0, "backup": 0.0}

@@ -109,7 +109,16 @@ def test_converted_state_dict_is_complete_and_used():
 
 
 def test_training_mode_norm_is_refused():
-    net = NNetWrapper(get_env("connect4"), get_args(**SMALL), device="cpu")
+    """Training-mode normalisation the port does not have is refused:
+    GroupNorm (and the FC net) raise when built. BatchNorm trains
+    (tests/test_torch_train.py holds it against flax's): in training mode
+    it normalises with the batch's statistics and moves its running ones."""
+    env = get_env("connect4")
+    for knob in (dict(norm="groupnorm"), dict(nnet_type="fc")):
+        with pytest.raises(ValueError, match="not ported"):
+            NNetWrapper(env, get_args(**SMALL, **knob), device="cpu")
+    net = NNetWrapper(env, get_args(**SMALL), device="cpu")
     net.model.train()
-    with pytest.raises(NotImplementedError):
-        net.model(torch.zeros(1, 4, 6, 7))
+    before = net.model.stem_norm.running_mean.clone()
+    net.model(torch.from_numpy(observations(4)))
+    assert not torch.equal(net.model.stem_norm.running_mean, before)

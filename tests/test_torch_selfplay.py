@@ -22,6 +22,8 @@ from alphazero_general_tpu_torch.envs.core import state_items
 from alphazero_general_tpu_torch.mcts import tree as T
 from alphazero_general_tpu_torch.selfplay import selfplay as SP
 from alphazero_general_tpu_torch.utils import get_args
+from alphazero_general_tpu.utils.config import get_args as j_get_args
+from test_torch_arena import move_draws
 from test_torch_model import SMALL, jax_and_port
 from test_torch_search import (random_positions, table_eval_fns,
                                to_jax_states, to_torch_states)
@@ -100,7 +102,10 @@ def test_move_steps_match_jax():
 def test_move_step_through_converted_resnet():
     """One full move through the converted small ResNet in float32: the
     record's shapes and invariants hold, and the network's outputs on the
-    move's observations agree with the JAX network's."""
+    move's observations agree with the JAX network's. The runner's records
+    are float16 (slimmed as the JAX package's are): each policy entry is a
+    root child's visits over the SIMS_FULL - 1 simulations past the root's
+    expansion, rounded to float16 (relative error at most 2^-11)."""
     jnet, variables, net = jax_and_port("float32", seed=5)
     env = get_env("connect4")
     cfg = SP.SelfPlayConfig.from_args(
@@ -115,7 +120,12 @@ def test_move_step_through_converted_resnet():
     carry, rec = fns["full"](carry, generator=gen)
 
     assert rec.obs.shape == (B, 4, 6, 7) and rec.pi.shape == (B, 7)
-    assert torch.allclose(rec.pi.sum(-1), torch.ones(B), atol=1e-6)
+    assert rec.obs.dtype == rec.pi.dtype == torch.float16
+    pi16 = rec.pi.to(torch.float32)
+    visits = pi16 * (SIMS_FULL - 1)
+    assert torch.allclose(visits, visits.round(), rtol=0,
+                          atol=(SIMS_FULL - 1) * 2**-11)
+    assert torch.allclose(pi16.sum(-1), torch.ones(B), rtol=0, atol=2**-11)
     assert (rec.root_visits == SIMS_FULL).all()
     legal = env.valid_moves(before)[torch.arange(B), rec.action.long()]
     assert legal.all()
@@ -130,3 +140,55 @@ def test_move_step_through_converted_resnet():
     np.testing.assert_allclose(v.numpy(), np.exp(np.asarray(j_logv)),
                                rtol=1e-4, atol=1e-5)
     assert SMALL["depth"] == len(net.model.blocks)
+
+
+def test_warmup_and_slimmed_records_match_jax():
+    """The warmup runner (uniform policy and values, numWarmupSims) and the
+    slimmed records of the three runners against JAX's runners, through
+    the converted small ResNet in float32, with JAX's draws (root noise
+    and tie noise on, as the defaults have them): fast records carry no
+    obs or pi, the others float16 ones equal to JAX's."""
+    jnet, variables, net = jax_and_port("float32", seed=4)
+    env = get_env("connect4")
+    knobs = dict(numMCTSSims=6, numFastSims=3, numWarmupSims=4,
+                 probFastSim=0.5)
+    cfg = SP.SelfPlayConfig.from_args(get_args(**knobs), 2, True)
+    j_cfg = JSP.SelfPlayConfig.from_args(j_get_args(**knobs), 2,
+                                         True)._replace(walk_impl="xla")
+    assert cfg.prob_fast == j_cfg.prob_fast == 0.5 and not cfg.const_temp
+    assert tuple(cfg.spec) == tuple(j_cfg.spec)
+    j_fns = JSP.make_move_fns(
+        JConnect4, j_cfg,
+        lambda v, obs: jnet.model.apply(v, obs, train=False))
+    fns = SP.make_move_fns(env, cfg, net.model)
+    j_carry = JSP.init_selfplay(JConnect4, B, 1.0)
+    carry = SP.init_selfplay(env, B, device="cpu")
+    sims = {"warmup": 4, "fast": 3, "full": 6}
+    variables = jax.tree_util.tree_map(jnp.asarray, variables)
+    for k, kind in enumerate(("warmup", "warmup", "full", "fast", "full")):
+        rng = jax.random.PRNGKey(200 + k)
+        j_carry, j_rec = j_fns[kind](variables, j_carry, rng)
+        _, r_search, r_action, _ = jax.random.split(rng, 4)
+        d = move_draws(r_search, r_action,
+                       env.valid_moves(carry.env_state), sims[kind], True)
+        carry, rec = fns[kind](carry, gumbel=d.gumbel,
+                               search_draws=d.search)
+        np.testing.assert_array_equal(rec.action.numpy(),
+                                      np.asarray(j_rec.action))
+        np.testing.assert_array_equal(rec.win_state.numpy(),
+                                      np.asarray(j_rec.win_state))
+        assert (rec.root_visits == sims[kind]).all()
+        if kind == "fast":
+            assert rec.obs is None and rec.pi is None
+            assert j_rec.obs is None and j_rec.pi is None
+        else:
+            assert rec.obs.dtype == rec.pi.dtype == torch.float16
+            np.testing.assert_array_equal(rec.obs.numpy(),
+                                          np.asarray(j_rec.obs))
+            np.testing.assert_array_equal(rec.pi.numpy(),
+                                          np.asarray(j_rec.pi))
+    np.testing.assert_array_equal(carry.temps.numpy(),
+                                  np.asarray(j_carry.temps))
+    for name, x in state_items(carry.env_state).items():
+        np.testing.assert_array_equal(
+            x.numpy(), np.asarray(getattr(j_carry.env_state, name)))
