@@ -1,6 +1,7 @@
 """Environment registry (the port of alphazero_general_tpu/envs/__init__.py).
 
-Only connect4 is ported so far; the other envs follow in later slices.
+Ported so far: connect4 and the tafl variants brandubh and hnefatafl; the
+other envs follow in later slices.
 """
 
 from __future__ import annotations
@@ -9,8 +10,10 @@ from typing import Dict, Type
 
 from alphazero_general_tpu_torch.envs.connect4 import Connect4
 from alphazero_general_tpu_torch.envs.core import Env, EnvState  # noqa: F401
+from alphazero_general_tpu_torch.envs.tafl import Brandubh, Hnefatafl
 
-_ENVS: Dict[str, Type[Env]] = {Connect4.NAME: Connect4}
+_ENVS: Dict[str, Type[Env]] = {
+    e.NAME: e for e in (Connect4, Brandubh, Hnefatafl)}
 
 
 def list_envs():

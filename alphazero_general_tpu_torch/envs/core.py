@@ -15,7 +15,11 @@ JAX (one game)         here (a batch of B games)
 ``win_state(s)``       ``win_state(state) -> f32[B, NUM_PLAYERS + 1]``
 ``observation(s)``     ``observation(state) -> f32[B, C, H, W]``
 ``symmetries(o, p)``   ``symmetries(obs, pi) -> (obs[B, K, ...], pi[B, K, A])``
+``crude_value(s)``     ``crude_value(state) -> f32[B]`` (optional)
 =====================  ======================================================
+
+``win_and_valids(state)`` returns both results of ``win_state`` and
+``valid_moves``; the search calls it once per simulation.
 
 ``win_state`` keeps the reference convention: one slot per player set to 1.0
 on a win, the last slot 1.0 on a draw, all zeros while the game runs.
@@ -82,6 +86,18 @@ class Env:
     def symmetries(cls, obs: torch.Tensor, pi: torch.Tensor):
         """Stacked symmetric copies on axis 1; index 0 is the identity."""
         return obs[:, None], pi[:, None]
+
+    @classmethod
+    def win_and_valids(cls, state: EnvState):
+        """(win_state, valid_moves) together; an env whose two share work
+        (tafl's move generator) computes it once (JAX tree._win_valids)."""
+        return cls.win_state(state), cls.valid_moves(state)
+
+    @staticmethod
+    def crude_value(state: EnvState) -> torch.Tensor:
+        """Cheap heuristic value f32[B] in [0, 1] for greedy baselines
+        (reference: envs/brandubh/fastafl.pyx:258-268). Optional."""
+        raise NotImplementedError
 
     @classmethod
     def terminated(cls, state: EnvState) -> torch.Tensor:

@@ -129,9 +129,17 @@ def _game_minor_links(t):
 
 
 def counts(t) -> torch.Tensor:
-    """i32[B, A] root child visit counts of a Tree or a TreeT."""
-    root = torch.zeros_like(t.leaf)
-    return child_row(*_game_minor_links(t), root, t.num_actions)[1]
+    """i32[B, A] root child visit counts of a Tree or a TreeT: each root
+    child's n added at its action, O(N·B) work where ``child_row`` builds
+    an [N, B, A] one-hot (1.25 G elements at hnefatafl's N = 253,
+    B = 512, A = 2420). A root has at most one child per action."""
+    parent, parent_action, n, _ = _game_minor_links(t)
+    at_root = parent[:-1] == ROOT  # [N-1, B]; the sink is never a child
+    acts = torch.where(at_root, parent_action[:-1], 0).t().long()
+    visits = torch.where(at_root, n[:-1], 0).t()
+    out = torch.zeros((acts.shape[0], t.num_actions), dtype=torch.int32,
+                      device=acts.device)
+    return out.scatter_add_(1, acts, visits.to(torch.int32))
 
 
 def _renorm(p: torch.Tensor) -> torch.Tensor:
@@ -404,9 +412,10 @@ def apply_walk(env, tree: Tree, node, action, child, depth, skip_walk,
     leaf_states = gather_states(env, tree, leaf)
     expand_row = torch.where(tree.n[games, leaf.long()] == 0, leaf,
                              dummy).long()
+    win, valid = env.win_and_valids(leaf_states)
     tree.player[games, expand_row] = leaf_states.player
-    tree.e[games, expand_row] = env.win_state(leaf_states).to(torch.float32)
-    tree.valids[games, expand_row] = env.valid_moves(leaf_states)
+    tree.e[games, expand_row] = win.to(torch.float32)
+    tree.valids[games, expand_row] = valid
 
 
 def leaf_observation(env, tree: Tree) -> torch.Tensor:

@@ -4,10 +4,20 @@ path :285-542).
 
 Every tree column is ``[N, B]``: the game batch rides the LAST axis, so
 thread ``b`` of a kernel reads column ``b`` of each row and a warp's loads
-are coalesced. Row arrays are flattened per node on the first axis
-(``prior`` is ``[N*A, B]``, ``e`` is ``[N*V, B]``), and each env-state field
-is stored ``[N, S, B]`` in ``node_state``. Row ``N-1`` is the write sink,
-which no walk ever treats as a child.
+are coalesced. The win vectors are flattened per node on the first axis
+(``e`` is ``[N*V, B]``), and each env-state field is stored ``[N, S, B]`` in
+``node_state``. Row ``N-1`` is the write sink, which no walk ever treats as
+a child.
+
+The prior rows are the exception: ``prior`` is batch-major ``[B, N, A]``
+for every action-space size. Per simulation the tree reads one A-wide row
+per game, at a different node per game (the rank-walk pointer advance of
+``apply_walk_observe_t``), and writes one row per game at the same node
+(``install_prior_t``). Batch-major, each game's row is A contiguous floats;
+game-minor ``[N*A, B]``, every element of the read sits in its own 32-byte
+sector (8x the bytes), and at hnefatafl's A = 2420 and B = 512 that is
+40 MB a simulation instead of 5 MB. The write is one strided copy either
+way. The kernels never read the prior rows.
 
 Fresh trees only: simulation ``k`` of a search writes every game's new node
 at the same row ``k`` (the uniform slot). A game whose walk ended at a
@@ -22,7 +32,11 @@ Differences from the JAX TreeT, on purpose:
 * no ``expanded`` bitmask: the walk reads only the rank-walk pointers
   (``nba``/``nbp``), and the expanded set of a node is recoverable from them
   (actions expand in descending-(prior, -index) order, see tree.next_best);
-* no ``big_rows`` layout: connect4 (A = 7) never takes it.
+* no ``valids`` rows: the sign of a stored prior row packs the valid-move
+  mask (``tree.INVALID_PRIOR``), and nothing else reads them;
+* one prior layout for every A, where the JAX TreeT keeps small rows
+  game-minor and switches to batch-major (``big_rows``) at A >= 128, a
+  choice made for the TPU's lane tiles.
 """
 
 from __future__ import annotations
@@ -48,8 +62,7 @@ class TreeT:
     state_shapes: Dict[str, Tuple[int, ...]]  # field → per-game shape
     parent: torch.Tensor  # int32[N, B]
     parent_action: torch.Tensor  # int32[N, B]
-    valids: torch.Tensor  # float32[N*A, B] (0/1)
-    prior: torch.Tensor  # float32[N*A, B]; INVALID_PRIOR where invalid
+    prior: torch.Tensor  # float32[B, N, A]; INVALID_PRIOR where invalid
     n: torch.Tensor  # int32[N, B] visit counts
     q: torch.Tensor  # float32[N, B] mean backed-up value (parent's view)
     v: torch.Tensor  # float32[N, B] first-visit value (own view)
@@ -98,8 +111,7 @@ def init_tree_t(env, root_states, capacity: int, value_size: int) -> TreeT:
         state_shapes=shapes,
         parent=full((rows, B), UNVISITED, i32),
         parent_action=full((rows, B), UNVISITED, i32),
-        valids=full((rows * A, B), 0.0, f32),
-        prior=full((rows * A, B), 0.0, f32),
+        prior=full((B, rows, A), 0.0, f32),
         n=full((rows, B), 0, i32),
         q=full((rows, B), 0.0, f32),
         v=full((rows, B), 0.0, f32),
@@ -142,27 +154,28 @@ def scatter_states_uniform(tt: TreeT, states, slot: int) -> None:
 
 def leaf_data(env, states):
     """(win f32[B, V], valid bool[B, A], obs f32[B, ...], player i32[B]) of
-    a batched state (tree_t.py _leaf_data)."""
-    win = env.win_state(states).to(torch.float32)
-    return win, env.valid_moves(states), env.observation(states), \
+    a batched state (tree_t.py _leaf_data), through the env's
+    ``win_and_valids``."""
+    win, valid = env.win_and_valids(states)
+    return win.to(torch.float32), valid, env.observation(states), \
         states.player
 
 
-def write_expansion(tt: TreeT, slot: int, win, valid, player) -> None:
-    """Expansion writes at the uniform ``slot`` (MCTS.pyx:223-226): player,
-    terminal vector and valid moves (tree_t.py:336 _write_expansion)."""
-    V, A = tt.value_size, tt.num_actions
+def write_expansion(tt: TreeT, slot: int, win, player) -> None:
+    """Expansion writes at the uniform ``slot`` (MCTS.pyx:223-226): player
+    and terminal vector (tree_t.py:336 _write_expansion). The valid moves
+    reach the tree through the prior row ``install_prior_t`` stores."""
+    V = tt.value_size
     tt.player[slot] = player
     tt.e[slot * V:(slot + 1) * V] = win.T
     tt.eany[slot] = (win > 0).any(dim=-1).to(torch.float32)
-    tt.valids[slot * A:(slot + 1) * A] = valid.T.to(torch.float32)
 
 
 def expand_root_t(env, tt: TreeT):
     """First simulation on a fresh tree: every game's leaf is the root
     (tree_t.py:369). Returns (obs, e_leaf, leaf_valids)."""
     win, valid, obs, player = leaf_data(env, root_states(env, tt))
-    write_expansion(tt, 0, win, valid, player)
+    write_expansion(tt, 0, win, player)
     tt.depth.zero_()
     tt.leaf.zero_()
     return obs, win, valid
@@ -191,9 +204,7 @@ def apply_walk_observe_t(env, tt: TreeT, node, action, child, depth,
     tt.parent_action[slot] = torch.where(need_alloc, action,
                                          tt.parent_action[slot])
     # Advance the expanded node's rank-walk pointer past the new edge.
-    A = tt.num_actions
-    prow = tt.prior.view(-1, A, B)[rows, :, games]  # [B, A]
-    nb_a, nb_p = T.next_best(prow, p_sel, action)
+    nb_a, nb_p = T.next_best(tt.prior[games, rows], p_sel, action)
     tt.nba[rows, games] = torch.where(need_alloc, nb_a, tt.nba[rows, games])
     tt.nbp[rows, games] = torch.where(need_alloc, nb_p, tt.nbp[rows, games])
     scatter_states_uniform(tt, child_states, slot)
@@ -202,7 +213,7 @@ def apply_walk_observe_t(env, tt: TreeT, node, action, child, depth,
 
     leaf = torch.where(skip_walk, ROOT,
                        torch.where(need_alloc, slot, child)).to(torch.int32)
-    write_expansion(tt, slot, win, valid, player)
+    write_expansion(tt, slot, win, player)
     tt.depth.copy_(depth)
     torch.maximum(tt.max_depth, depth, out=tt.max_depth)
     tt.leaf.copy_(leaf)
@@ -219,10 +230,9 @@ def install_prior_t(tt: TreeT, pi, spec: SearchSpec, root_adjust: bool,
     root and ``root_adjust`` is set, and tie noise) at row ``slot``
     (tree_t.py:472, MCTS.pyx:236-258). The random draws are those of
     ``prior_rows``."""
-    A = tt.num_actions
     new_prior, nb_a, nb_p = T.prior_rows(
         pi, leaf_valids, spec, (tt.leaf == ROOT) if root_adjust else None,
         gammas, tie, generator)
-    tt.prior[slot * A:(slot + 1) * A] = new_prior.T
+    tt.prior[:, slot] = new_prior
     tt.nba[slot] = nb_a
     tt.nbp[slot] = nb_p

@@ -3,6 +3,7 @@ from alphazero_general_tpu_torch.selfplay.selfplay import (  # noqa: F401
     MoveRecord,
     SelfPlayConfig,
     SelfPlayState,
+    densify_pi,
     init_selfplay,
     make_move_fns,
     move_step,

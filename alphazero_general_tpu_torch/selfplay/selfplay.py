@@ -17,9 +17,8 @@ at the action played (the reference's update_root, MCTS.pyx:185-195) and
 restarted where the game ended, where the kept subtree leaves no room for
 another full search, or where it passed ``reset_threshold`` rows.
 
-Not ported yet: ``leaf_batch`` > 1, the scanned ``play_chunk`` (its caller
-is the JAX package's multi-device path), and the sparse policy records of
-action spaces of 512 and more (``make_move_fns`` raises for them).
+Not ported yet: ``leaf_batch`` > 1 and the scanned ``play_chunk`` (its
+caller is the JAX package's multi-device path).
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from alphazero_general_tpu_torch.envs.core import state_items
@@ -37,9 +37,9 @@ from alphazero_general_tpu_torch.utils.misc import (
     TEMP_MIN, TEMP_SCALE_FACTOR, const_temp_scaling, default_temp_scaling,
 )
 
-#: Action-space size from which the JAX package ships move records' policy
-#: as exact top-k values and ids (selfplay.py:40); not ported yet.
-_SPARSE_PI_MIN_ACTIONS = 512
+#: Action-space size from which move records ship the policy as exact
+#: top-k values and ids (selfplay.py:40; see MoveRecord.pi).
+SPARSE_PI_MIN_ACTIONS = 512
 
 
 class SelfPlayConfig(NamedTuple):
@@ -133,7 +133,12 @@ class MoveRecord:
     float16 otherwise."""
 
     obs: torch.Tensor  # f32[B, C, H, W] observation before the move
-    pi: torch.Tensor  # f32[B, A] visit-count policy at temperature 1
+    #: f32[B, A] visit-count policy at temperature 1 — or, in the runners'
+    #: records of action spaces of SPARSE_PI_MIN_ACTIONS and more, its
+    #: top-k values [B, k] with ``pi_idx`` set: a search of ``sims``
+    #: simulations visits at most sims - 1 root children, so k = sims + 1
+    #: keeps every nonzero and the densified row is exact.
+    pi: torch.Tensor
     player: torch.Tensor  # i32[B] player who moved
     action: torch.Tensor  # i32[B]
     win_state: torch.Tensor  # f32[B, V] result after the move (0s if running)
@@ -144,6 +149,7 @@ class MoveRecord:
     #: game ended, a full search would not fit, or the reset threshold was
     #: passed) instead of its re-rooted subtree; None without reuse.
     tree_reset: torch.Tensor = None
+    pi_idx: torch.Tensor = None  # i32[B, k] action ids of sparse ``pi``
 
 
 def init_selfplay(env, batch_size: int, start_temp: float = 1.0,
@@ -298,13 +304,21 @@ def make_move_fns(env, cfg: SelfPlayConfig, apply_fn):
     The records are slimmed as the JAX package's are: the fast runner
     returns obs and pi as None (finalize drops fast samples), the others
     float16 obs and pi (board planes are exact in float16; policy entries
-    round by at most 2^-11 of their value).
+    round by at most 2^-11 of their value). From ``SPARSE_PI_MIN_ACTIONS``
+    actions on, pi is the top-(sims + 1) values in float16 and ``pi_idx``
+    their int32 action ids (selfplay.py:329-340): :func:`densify_pi`
+    rebuilds the dense row exactly. Which ids carry the zeros among the k
+    may differ from JAX's ``top_k`` where values tie; the dense rows do
+    not.
     """
-    if env.ACTION_SIZE >= _SPARSE_PI_MIN_ACTIONS:
+    sparse = env.ACTION_SIZE >= SPARSE_PI_MIN_ACTIONS
+    if sparse and cfg.reuse_tree:
+        # A carried root holds more visits than one search's, and so may
+        # have more than sims + 1 children with visits.
         raise ValueError(
-            f"action space {env.ACTION_SIZE} >= {_SPARSE_PI_MIN_ACTIONS}: "
-            "the sparse policy records of large action spaces are not "
-            "ported yet")
+            f"reuse_tree with an action space of {env.ACTION_SIZE} >= "
+            f"{SPARSE_PI_MIN_ACTIONS}: the top-(sims + 1) policy records "
+            "are exact only on fresh trees; not ported yet")
 
     def net_eval(obs):
         logp, logv = apply_fn(obs)
@@ -319,8 +333,14 @@ def make_move_fns(env, cfg: SelfPlayConfig, apply_fn):
                                    warmup=warmup)
             if fast:
                 rec.obs = rec.pi = None
+                return carry, rec
+            rec.obs = rec.obs.to(torch.float16)
+            if sparse:
+                k = min(env.ACTION_SIZE, sims + 1)
+                vals, idx = torch.topk(rec.pi, k, dim=-1)
+                rec.pi, rec.pi_idx = vals.to(torch.float16), \
+                    idx.to(torch.int32)
             else:
-                rec.obs = rec.obs.to(torch.float16)
                 rec.pi = rec.pi.to(torch.float16)
             return carry, rec
 
@@ -329,3 +349,13 @@ def make_move_fns(env, cfg: SelfPlayConfig, apply_fn):
     return {"fast": build(cfg.sims_fast, True, False),
             "full": build(cfg.sims_full, False, False),
             "warmup": build(cfg.sims_warmup, False, True)}
+
+
+def densify_pi(vals: np.ndarray, idx: np.ndarray,
+               action_size: int) -> np.ndarray:
+    """Dense float16 policy rows [B, A] of a sparse record: ``vals`` at
+    ``idx`` (both [B, k]), zeros elsewhere (the JAX Coach's densify,
+    coach.py:389-399)."""
+    dense = np.zeros((vals.shape[0], action_size), np.float16)
+    np.put_along_axis(dense, idx.astype(np.int64), vals, axis=1)
+    return dense

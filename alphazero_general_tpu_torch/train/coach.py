@@ -41,7 +41,7 @@ from alphazero_general_tpu_torch.selfplay.replay import (
     history_window,
 )
 from alphazero_general_tpu_torch.selfplay.selfplay import (
-    SelfPlayConfig, init_selfplay, make_move_fns,
+    SelfPlayConfig, densify_pi, init_selfplay, make_move_fns,
 )
 from alphazero_general_tpu_torch.utils.config import Args, check_ported
 from alphazero_general_tpu_torch.utils.metrics import make_writer
@@ -215,14 +215,20 @@ class Coach:
                    "full": cfg.sims_full}
 
         def drain_round():
-            w, d, f, o, p = raw.popleft()
+            w, d, f, o, p, pidx = raw.popleft()
             w = w.cpu().numpy().astype(np.float32)
             d = d.cpu().numpy()
             stats_win.append(w)
             stats_done.append(d)
+            if p is not None:
+                p = p.cpu().numpy()
+                if pidx is not None:
+                    # Sparse top-k record (MoveRecord.pi_idx): densified
+                    # on the host, exactly (coach.py:389-399).
+                    p = densify_pi(p, pidx.cpu().numpy(),
+                                   self.env.ACTION_SIZE)
             fin.add_round(w, d, f,
-                          obs=None if o is None else o.cpu().numpy(),
-                          pi=None if p is None else p.cpu().numpy())
+                          obs=None if o is None else o.cpu().numpy(), pi=p)
 
         bar = Bar(f"Self-play iter {iteration}", max=target)
         while games_done < target:
@@ -244,7 +250,7 @@ class Coach:
             moves += 1
             simulations += sims_of[kind]
             raw.append((rec.win_state, rec.done, kind == "fast", rec.obs,
-                        rec.pi))
+                        rec.pi, rec.pi_idx))
             pending.append(carry.games_played)
             while len(pending) > PIPE:
                 games_done = int(pending.popleft())

@@ -40,15 +40,15 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    route on the card (the columns transposed to [N, B], then the
    game-minor kernel); and one more fast move under torch.profiler, for
    the kernels' device times in place.
-7. breakdown: where the time of a 40- and a 200-simulation search goes,
+7. breakdown: where the time of a 40-simulation search goes,
    per stage (CUDA events and host clock) and per kernel (torch.profiler:
    the kernels' device times in place, between the network's passes).
 8. coach: one Coach cycle of the connect4 preset through
    ``python -m alphazero_general_tpu_torch.cli.train``'s ``main``, cut as
    ``COACH_CUTS`` says (two iterations, the first a warmup one; 2048 games
-   an iteration; arenas of 128 games; a gate that always promotes): warmup
-   self-play, train, both arenas and gating, then the network's self-play,
-   train, arenas and gating. Checks
+   an iteration; arenas of 128 games after iteration 1 only; a gate that
+   always promotes): warmup self-play, train, both arenas and gating, then
+   the network's self-play and train. Checks
    its checkpoints, npz samples (counts, pi rows, values), metrics (finite
    losses, autoTrainSteps' step count, arena wins and draws, the gating
    decision), and launch counters proving that every self-play and arena
@@ -59,6 +59,28 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    batch 1024: fed as the Coach feeds them (row indices into the device
    window, one random symmetry a sample), with the device's busy share
    from torch.profiler, and fed from host arrays.
+
+9. tafl kernels: the two game-minor kernels bit for bit against their
+   plain versions at the tafl shapes, with a random 128x10 ResNet of the
+   presets' heads: a hnefatafl 250-simulation search (512 games from the
+   start and from random openings, A = 2420, N = 253; held after 50 and
+   249 simulations) and a 50-simulation one (N = 53), each timed at its
+   last snapshot as in phase 3; brandubh's self-play searches (1024
+   games, 150 and 30 simulations, N = 153 and 33) untimed; and a
+   brandubh arena round's search (128 games, 150 simulations, no root
+   noise), timed. Then the prior rows' read and write per simulation,
+   timed in the TreeT's batch-major layout and in a game-minor one.
+10. hnefatafl self-play: 4 moves (fast, fast, fast, full) of the preset
+   through ``make_move_fns``, with launch counters proving that every
+   simulation went through both game-minor kernels and no plain version
+   ran, and the sparse top-k policy records densified on the card to rows
+   that sum to 1 over valid actions; then where a fast search's time
+   goes, as in phase 7.
+11. tafl reference: a hnefatafl search (64 games) on the card against the
+   same search on the CPU through the plain versions.
+12. brandubh coach: one Coach cycle of the brandubh preset through
+   ``cli.train``'s ``main``, cut as ``BRANDUBH_COACH_CUTS`` says, with the
+   checks of phase 8 (the npz rows are dense pi rows of width 588).
 
 The last two lines are the kernels line ``{"kernels": [...]}`` and
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -117,6 +139,13 @@ SNAPSHOTS = {SIMS_FULL: (50, 120, 199), SIMS_FAST: (20, 39)}
 #: Simulations of the reuse phase's search on carried trees after which the
 #: batch-major kernels are checked; the last snapshot is timed.
 REUSE_SNAPSHOTS = (0, 50, 120, 199)
+#: Snapshots of the tafl kernel phase, by variant and simulations (the
+#: presets' full and fast searches; envs/presets.py): the last one of each
+#: timed search is timed.
+TAFL_SNAPSHOTS = {("hnefatafl", 250): (50, 249), ("hnefatafl", 50): (20, 49),
+                  ("brandubh", 150): (37, 149), ("brandubh", 30): (15, 29)}
+#: Games of a brandubh arena round (BRANDUBH_COACH_CUTS' arenaCompare).
+BRANDUBH_ARENA_GAMES = 128
 #: Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 #: float32 (non-tensor-core) operations/s, for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -317,15 +346,17 @@ def random_openings(env, batch: int, max_plies: int, generator, device):
     return states
 
 
-def table_eval_fn(action_size: int, value_size: int, seed: int = 0,
-                  rows: int = 4093):
-    """Evaluation by table lookup on an integer hash of the stone planes:
-    the same numbers on any device, so a search gives equal visit counts on
-    the card and on the CPU."""
+def table_eval_fn(env, value_size: int, seed: int = 0, rows: int = 4093):
+    """Evaluation by table lookup on an integer hash of the piece planes
+    (every observation plane but the last two, colour and turn, in both
+    connect4 and tafl): the same numbers on any device, so a search gives
+    equal visit counts on the card and on the CPU."""
     rng = np.random.default_rng(seed)
-    pi_tab = rng.dirichlet(np.ones(action_size), rows).astype(np.float32)
+    planes, height, width = env.OBS_SHAPE
+    planes -= 2
+    pi_tab = rng.dirichlet(np.ones(env.ACTION_SIZE), rows).astype(np.float32)
     v_tab = rng.dirichlet(np.ones(value_size), rows).astype(np.float32)
-    weights = rng.integers(1, rows, size=(2, 6 * 7))
+    weights = rng.integers(1, rows, size=(planes, height * width))
     cache = {}
 
     def eval_fn(obs):
@@ -334,7 +365,8 @@ def table_eval_fn(action_size: int, value_size: int, seed: int = 0,
             cache[dev] = tuple(torch.from_numpy(x).to(dev)
                                for x in (pi_tab, v_tab, weights))
         pi_t, v_t, w = cache[dev]
-        stones = (obs[:, :2] > 0.5).reshape(obs.shape[0], 2, -1).long()
+        stones = (obs[:, :planes] > 0.5).reshape(obs.shape[0], planes,
+                                                 -1).long()
         h = (stones * w).sum(dim=(1, 2)) % rows
         return pi_t[h], v_t[h]
 
@@ -512,7 +544,8 @@ def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
                 host_ms=host_ms(launch, host_calls, device),
                 plain_ms=time_ms(lambda: OD.descend_plain(
                     *cols, spec.cpuct, spec.fpu_reduction), 3, device),
-                N=tt.parent.shape[0], depth_sum=int(walk[3].sum().item()),
+                N=tt.parent.shape[0], B=batch,
+                depth_sum=int(walk[3].sum().item()),
                 depth_max=int(walk[3].max().item()),
                 bytes=_descend_bytes(cols, walk))
         values = S._leaf_step_t(env, tt, spec, eval_fn, False, slot, False,
@@ -538,7 +571,7 @@ def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
                 ms_by_threads={t: kernel_ms(
                     lambda: launch(t), reps, device, "backup_kernel",
                     flush_l2=True) for t in BACKUP_THREADS},
-                N=tt.parent.shape[0], path_sum=int(paths.sum()),
+                N=tt.parent.shape[0], B=batch, path_sum=int(paths.sum()),
                 path_max=int(paths.max()))
         OB.backup_batched_t(tt, values, spec)
         log(f"  snapshot after {slot} sims: descend and backup agree "
@@ -587,11 +620,13 @@ def random_tree_phase(spec, device, nodes=RANDOM_NODES,
     return errs
 
 
-def reference_phase(env, device, batch: int = 256, sims: int = 64):
+def reference_phase(env, device, batch: int = 256, sims: int = 64,
+                    rows: int = 4093):
     """A whole search through the kernels on ``device`` against the same
-    search through the plain versions on the CPU."""
+    search through the plain versions on the CPU (a table evaluation of
+    ``rows`` rows)."""
     spec = T.SearchSpec(add_root_noise=False, tie_noise=0.0)
-    eval_fn = table_eval_fn(env.ACTION_SIZE, spec.value_size)
+    eval_fn = table_eval_fn(env, spec.value_size, rows=rows)
     gen = torch.Generator("cpu").manual_seed(SEED + 1)
     roots = random_openings(env, batch, 8, gen, "cpu")
     trees = []
@@ -607,8 +642,9 @@ def reference_phase(env, device, batch: int = 256, sims: int = 64):
               f"reference search: {name} differs between {device} and cpu")
     err = (got.q.cpu() - want.q).abs().max().item()
     check(err <= TOL_FLOAT, f"reference search: q error {err}")
-    log(f"  {batch} games x {sims} sims on {device} == cpu "
-        f"(n, parent, parent_action equal; q max error {err:.3g})")
+    log(f"  {env.NAME}: {batch} games x {sims} sims on {device} == cpu "
+        f"(n, parent, parent_action equal; q max error {err:.3g}; deepest "
+        f"walk {int(want.max_depth.max())})")
 
 
 def reference_reuse_phase(env, device, batch: int = 256, sims=(16, 64)):
@@ -618,7 +654,7 @@ def reference_reuse_phase(env, device, batch: int = 256, sims=(16, 64)):
     spec = T.SearchSpec(add_root_noise=False, tie_noise=0.0)
     cfg = SelfPlayConfig(sims_full=sims[1], sims_fast=sims[0],
                          reuse_tree=True, spec=spec)
-    eval_fn = table_eval_fn(env.ACTION_SIZE, spec.value_size)
+    eval_fn = table_eval_fn(env, spec.value_size)
     gen = torch.Generator("cpu").manual_seed(SEED + 5)
     roots = random_openings(env, batch, 8, gen, "cpu")
     rng = np.random.default_rng(SEED + 5)
@@ -658,6 +694,23 @@ def reference_reuse_phase(env, device, batch: int = 256, sims=(16, 64)):
         f"{carried} trees carried)")
 
 
+def _dense_pi(env, rec, kind: str) -> torch.Tensor:
+    """The float32 policy rows [B, A] of a non-fast move record: as they
+    are, or, where the record is sparse (A >= 512), its top-(sims + 1)
+    values scattered to their action ids on the card."""
+    if rec.pi_idx is None:
+        check(rec.pi.shape[1] == env.ACTION_SIZE,
+              f"{kind} move: a dense policy of width {rec.pi.shape[1]}")
+        return rec.pi.float()
+    check(rec.pi.shape == rec.pi_idx.shape and rec.pi_idx.dtype ==
+          torch.int32 and rec.pi.shape[1] < env.ACTION_SIZE,
+          f"{kind} move: sparse policy record of shape {rec.pi.shape} / "
+          f"{rec.pi_idx.shape}")
+    dense = torch.zeros((rec.pi.shape[0], env.ACTION_SIZE),
+                        dtype=torch.float32, device=rec.pi.device)
+    return dense.scatter_(1, rec.pi_idx.long(), rec.pi.float())
+
+
 def selfplay_phase(env, model, cfg, batch: int, cycle, device,
                    openings=None):
     """Moves of the config ``cfg`` through make_move_fns, from the start
@@ -665,7 +718,10 @@ def selfplay_phase(env, model, cfg, batch: int, cycle, device,
     just before and reads them just after: on fresh trees each simulation
     runs the game-minor backup, and the game-minor descent but on the
     first (which expands the root without a walk); with tree reuse each
-    simulation runs both batch-major kernels; no other kernel runs."""
+    simulation runs both batch-major kernels; no other kernel and no plain
+    version runs. Each non-fast move's policy rows (densified where the
+    record is sparse) must be float16, sum to 1 and lie on valid
+    actions."""
     fns = make_move_fns(env, cfg, model)
     carry = init_selfplay(env, batch, device=device, cfg=cfg)
     if openings is not None:
@@ -681,40 +737,44 @@ def selfplay_phase(env, model, cfg, batch: int, cycle, device,
     reset_counts()
     moves = []
     restarts = {"done": 0, "overflow": 0}
-    for kind in cycle:
-        sims = cfg.sims_fast if kind == "fast" else cfg.sims_full
-        before = carry.env_state
-        t0 = time.perf_counter()
-        carry, rec = fns[kind](carry, generator=gen)
-        sync(device)
-        dt = time.perf_counter() - t0
-        moves.append((kind, sims, dt))
-        if cfg.reuse_tree:  # carried roots hold earlier visits too
-            check(bool((rec.root_visits >= sims).all()),
-                  f"{kind} move: root visits < {sims}")
-            restarts["done"] += int((rec.tree_reset & rec.done).sum())
-            restarts["overflow"] += int((rec.tree_reset & ~rec.done).sum())
-        else:
-            check(bool((rec.root_visits == sims).all()),
-                  f"{kind} move: root visits != {sims}")
-        if kind == "fast":  # slimmed: fast samples are never stored
-            check(rec.pi is None and rec.obs is None,
-                  "fast move: the record still carries obs or pi")
-        else:
-            check(rec.pi.shape == (batch, env.ACTION_SIZE)
-                  and rec.pi.dtype == torch.float16
-                  and bool(torch.isfinite(rec.pi).all()),
-                  f"{kind} move: policy shape, dtype or values wrong")
-            check(bool(torch.allclose(rec.pi.float().sum(-1),
-                                      torch.ones_like(rec.pi[:, 0],
-                                                      dtype=torch.float32),
-                                      rtol=0, atol=PI16_ATOL)),
-                  f"{kind} move: a policy row does not sum to 1")
-        legal = env.valid_moves(before)[torch.arange(batch, device=device),
-                                        rec.action.long()]
-        check(bool(legal.all()), f"{kind} move: illegal action")
-        log(f"  {kind} move: {sims} sims x {batch} games in {dt:.3f} s "
-            f"= {batch * sims / dt:,.0f} sims/s")
+    games = torch.arange(batch, device=device)
+    with _PlainCounter(OD, "descend_plain") as pd, \
+            _PlainCounter(OB, "backup_plain_") as pb:
+        for kind in cycle:
+            sims = cfg.sims_fast if kind == "fast" else cfg.sims_full
+            before = carry.env_state
+            t0 = time.perf_counter()
+            carry, rec = fns[kind](carry, generator=gen)
+            sync(device)
+            dt = time.perf_counter() - t0
+            moves.append((kind, sims, dt))
+            if cfg.reuse_tree:  # carried roots hold earlier visits too
+                check(bool((rec.root_visits >= sims).all()),
+                      f"{kind} move: root visits < {sims}")
+                restarts["done"] += int((rec.tree_reset & rec.done).sum())
+                restarts["overflow"] += int((rec.tree_reset
+                                             & ~rec.done).sum())
+            else:
+                check(bool((rec.root_visits == sims).all()),
+                      f"{kind} move: root visits != {sims}")
+            valid = env.valid_moves(before)
+            if kind == "fast":  # slimmed: fast samples are never stored
+                check(rec.pi is None and rec.obs is None,
+                      "fast move: the record still carries obs or pi")
+            else:
+                check(rec.pi.dtype == torch.float16
+                      and bool(torch.isfinite(rec.pi).all()),
+                      f"{kind} move: policy dtype or values wrong")
+                pi = _dense_pi(env, rec, kind)
+                check(bool(torch.allclose(pi.sum(-1), torch.ones_like(
+                    pi[:, 0]), rtol=0, atol=PI16_ATOL)),
+                      f"{kind} move: a policy row does not sum to 1")
+                check(not bool(((pi > 0) & ~valid).any()),
+                      f"{kind} move: policy mass on an invalid action")
+            check(bool(valid[games, rec.action.long()].all()),
+                  f"{kind} move: illegal action")
+            log(f"  {kind} move: {sims} sims x {batch} games in {dt:.3f} s "
+                f"= {batch * sims / dt:,.0f} sims/s")
     launches = read_counts()
     total = sum(s for _, s, _ in moves)
     expect = dict.fromkeys(COUNTED, 0)
@@ -723,6 +783,9 @@ def selfplay_phase(env, model, cfg, batch: int, cycle, device,
             expect.update(descend_rows=total, backup_rows=total)
         else:
             expect.update(descend=total - len(moves), backup=total)
+        check(pd.calls == 0 and pb.calls == 0,
+              f"plain versions ran on the card ({pd.calls} descend, "
+              f"{pb.calls} backup)")
     check(launches == expect,
           f"kernel launches {launches} != expected {expect}")
     carried = 0
@@ -732,7 +795,8 @@ def selfplay_phase(env, model, cfg, batch: int, cycle, device,
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     total_s = sum(dt for _, _, dt in moves)
     return dict(moves=moves, launches=launches,
-                sims_per_s=batch * total / total_s, peak_bytes=peak,
+                sims_per_s=batch * total / total_s,
+                wall_ms_per_sim=total_s * 1e3 / total, peak_bytes=peak,
                 restarts=restarts, carried=carried, carry=carry, fns=fns,
                 generator=gen)
 
@@ -791,7 +855,7 @@ def rows_kernel_phase(env, eval_fn, spec, tree, sims: int, snapshots,
                 jax_route_ms=device_ms(jax_route, reps, device,
                                        "descend_kernel", flush_l2=True),
                 jax_route_call_ms=time_ms(jax_route, reps, device),
-                N=N, depth_sum=int(walk[3].sum().item()),
+                N=N, B=B, depth_sum=int(walk[3].sum().item()),
                 depth_max=int(walk[3].max().item()),
                 bytes=_descend_bytes([c.t() for c in cols], walk))
         values = S._leaf_step(env, tree, spec, eval_fn, k == 0, gen)
@@ -826,7 +890,7 @@ def rows_kernel_phase(env, eval_fn, spec, tree, sims: int, snapshots,
                 jax_route_ms=device_ms(jax_route, reps, device,
                                        "backup_kernel", flush_l2=True),
                 jax_route_call_ms=time_ms(jax_route, reps, device),
-                N=N, path_sum=int(paths.sum()), path_max=int(paths.max()))
+                N=N, B=B, path_sum=int(paths.sum()), path_max=int(paths.max()))
         OB.backup_batched(tree, values, spec)
         log(f"  snapshot after {k} sims on carried trees: descend_rows and "
             f"backup_rows agree (max errors {errs['descend_rows']:.3g}, "
@@ -962,13 +1026,16 @@ def breakdown_phase(env, eval_fn, spec, batch: int, sims: int, device):
 #: 128 x 8 with [1024, 256] / [1024] heads, train batch 1024) through
 #: ``cli.train.main``, cut to two iterations (the first a warmup one), one
 #: lockstep batch of games a self-play iteration (preset: 8192 games),
-#: arenas of 128 games (preset: 512), and the float tower (the int8 one is
-#: not ported). The gate promotes whatever wins at least 0 (preset: 0.52),
-#: so that iteration 2 always plays the trained network: a model trained
+#: arenas of 128 games (preset: 512) after iteration 1 only (preset: both
+#: arenas every iteration; the cut leaves room for the brandubh Coach in
+#: the script's time), and the float tower (the int8 one is not ported).
+#: The gate promotes whatever wins at least 0 (preset: 0.52), so that
+#: iteration 2 always plays the trained network: a model trained
 #: on one warmup iteration may lose the past arena, and self-play would
 #: stay on the warmup runner.
 COACH_CUTS = dict(numIters=2, numWarmupIters=1, gamesPerIteration=2048,
                   arenaCompare=128, arenaCompareBaseline=128,
+                  baselineCompareFreq=2, pastCompareFreq=2,
                   quant_selfplay=False, min_next_model_winrate=0.0)
 #: A float32 train step on the card against the same step on the CPU:
 #: params and batch statistics agree within these (cuDNN's and the CPU's
@@ -1037,17 +1104,20 @@ class _PlainCounter:
         setattr(self.module, self.name, self.fn)
 
 
-def coach_phase(device, root: str, sets: dict) -> dict:
-    """One Coach cycle through ``cli.train.main`` with the preset cut by
-    ``sets``, in ``root``; then every check of the cycle from its files and
-    metrics, and the launch counters against the searches it ran."""
+def coach_phase(device, root: str, sets: dict,
+                env_name: str = "connect4") -> dict:
+    """One Coach cycle of ``env_name``'s preset through ``cli.train.main``,
+    cut by ``sets``, in ``root``; then every check of the cycle from its
+    files and metrics (the arenas its schedule ran, and no others), and
+    the launch counters against the searches it ran."""
     from alphazero_general_tpu_torch.cli import train as cli_train
     from alphazero_general_tpu_torch.selfplay.replay import ReplayStore
 
-    env = get_env("connect4")
+    env = get_env(env_name)
+    args = preset_args(env_name, **sets)
     dirs = dict(run_name="smoke", checkpoint=f"{root}/checkpoint",
                 data=f"{root}/data", log_dir=f"{root}/runs")
-    argv = ["connect4", "--device", str(torch.device(device).type)]
+    argv = [env_name, "--device", str(torch.device(device).type)]
     for k, v in {**sets, **dirs}.items():
         argv += ["--set", f"{k}={v!r}"]
     cuda = torch.device(device).type == "cuda"
@@ -1065,7 +1135,7 @@ def coach_phase(device, root: str, sets: dict) -> dict:
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
 
     ckpt = os.path.join(dirs["checkpoint"], "smoke")
-    iters = int(sets["numIters"])
+    iters = int(args.numIters)
     for it in range(iters + 1):
         for ext in (".ckpt", ".json"):
             check(os.path.isfile(f"{ckpt}/iteration-{it:04d}{ext}"),
@@ -1075,21 +1145,32 @@ def coach_phase(device, root: str, sets: dict) -> dict:
         check(any(t.startswith(prefix) for t in m),
               f"coach: no {prefix}* metric")
     store = ReplayStore(dirs["data"], "smoke")
-    batch = int(sets.get("train_batch_size", 1024))
+    batch = int(args.train_batch_size)
     searches = simulations = 0
     out = dict(wall=wall, launches=launches, peak_bytes=peak, iters={},
-               games_per_batch=int(sets.get("process_batch_size", GAMES)))
-    sims = int(sets.get("numMCTSSims", 200))
+               games_per_batch=int(args.process_batch_size), env=env_name,
+               cuts=sets)
+    sims = int(args.numMCTSSims)
+    # The arena schedule of Coach.learn: (kind, games knob, runs or not,
+    # every how many iterations).
+    arenas = (("baseline", "arenaCompareBaseline",
+               bool(args.compareWithBaseline), int(args.baselineCompareFreq)),
+              ("past", "arenaCompare", bool(args.compareWithPast),
+               int(args.pastCompareFreq)))
     prev_gate = 0
     # The gate the cut replaces: the preset's winrate, whose "keep" branch
     # the CPU parity tests hold to the JAX Coach.
-    preset_gate = float(preset_args("connect4").min_next_model_winrate)
+    preset_gate = float(preset_args(env_name).min_next_model_winrate)
     for it in range(1, iters + 1):
         obs, pi, value = store.load(it)
         n = int(m["self_play/samples"][it])
         check(len(obs) == len(pi) == len(value) == n and n > 0,
               f"coach: iteration {it} stored {len(obs)} samples, the "
               f"finalizer counted {n}")
+        check(obs.shape[1:] == env.OBS_SHAPE
+              and pi.shape[1] == env.ACTION_SIZE,
+              f"coach: iteration {it} rows of shapes {obs.shape[1:]} / "
+              f"{pi.shape[1:]}")
         check(bool(np.isfinite(obs).all()), f"coach: iteration {it} obs")
         check(np.allclose(pi.astype(np.float32).sum(-1), 1, rtol=0,
                           atol=PI16_ATOL),
@@ -1109,12 +1190,18 @@ def coach_phase(device, root: str, sets: dict) -> dict:
                    loss=(m["loss/policy"][it], m["loss/value"][it]))
         searches += int(rec["moves"])
         simulations += int(rec["self_play_sims"])
-        for kind in ("baseline", "past"):
+        want_gate = prev_gate
+        for kind, knob, on, freq in arenas:
+            ran = on and int(args[knob]) > 0 and (it - 1) % freq == 0
+            check(ran == (it in m.get(f"arena_{kind}/games", {})),
+                  f"coach: the {kind} arena of iteration {it} "
+                  f"{'did not run' if ran else 'ran'} against the schedule")
+            if not ran:
+                continue
             a = {t: m[f"arena_{kind}/{t}"][it] for t in
                  ("rounds", "games", "wins_new", "wins_other", "draws")}
             check(a["wins_new"] + a["wins_other"] + a["draws"] == a["games"]
-                  == int(sets[{"baseline": "arenaCompareBaseline",
-                               "past": "arenaCompare"}[kind]]),
+                  == int(args[knob]),
                   f"coach: {kind} arena wins and draws != games: {a}")
             wr = (a["wins_new"] + 0.5 * a["draws"]) / a["games"]
             check(abs(wr - m[f"win_rate/{kind}"][it]) < 1e-6,
@@ -1123,17 +1210,19 @@ def coach_phase(device, root: str, sets: dict) -> dict:
             searches += int(a["rounds"])
             simulations += int(a["rounds"]) * sims
             rec[kind] = a
-        # Gating under the preset's rule ("reference", no iteration cap).
-        want_gate = it if m["win_rate/past"][it] >= float(
-            sets.get("min_next_model_winrate", 0.52)) else prev_gate
+            if kind == "past":
+                # Gating under the preset's rule ("reference", no cap).
+                want_gate = it if wr >= float(
+                    args.min_next_model_winrate) else prev_gate
+                rec["preset_gate"] = (preset_gate, "promote it" if wr >=
+                                      preset_gate else "keep the past model")
         check(m["win_rate/self_play_model"][it] == want_gate,
               f"coach: iteration {it} self_play_iter "
               f"{m['win_rate/self_play_model'][it]}, the rule gives "
               f"{want_gate}")
         prev_gate = want_gate
-        rec["preset_gate"] = (preset_gate, "promote it" if m[
-            "win_rate/past"][it] >= preset_gate else "keep the past model")
-        rec["times"] = {t[5:]: m[t][it] for t in m if t.startswith("time/")}
+        rec["times"] = {t[5:]: m[t][it] for t in m
+                        if t.startswith("time/") and it in m[t]}
         out["iters"][it] = rec
     expect = dict.fromkeys(COUNTED, 0)
     if cuda:  # on the CPU the plain versions run and launch nothing
@@ -1246,50 +1335,48 @@ def kernel_bound(kind: str, t: dict, batch: int) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-#: The kernels line's records: name, source, the TPU kernel's function
-#: that the kernel replaces, and its kind for ``kernel_bound`` (which
-#: counts a walk's or a path's work alike in both layouts).
-RECORDS = (
-    ("descend", "alphazero_general_tpu_torch/csrc/descend.cu",
-     "alphazero_general_tpu/ops/descend.py:44", "descend"),
-    ("backup", "alphazero_general_tpu_torch/csrc/backup.cu",
-     "alphazero_general_tpu/ops/backup.py:26", "backup"),
-    ("descend_rows", "alphazero_general_tpu_torch/csrc/descend.cu",
-     "alphazero_general_tpu/ops/descend.py:198", "descend"),
-    ("backup_rows", "alphazero_general_tpu_torch/csrc/backup.cu",
-     "alphazero_general_tpu/ops/backup.py:101", "backup"),
-)
+#: Each kernel behind the kernels line's records: its source, the TPU
+#: kernel's function that it replaces, and its kind for ``kernel_bound``
+#: (which counts a walk's or a path's work alike in both layouts).
+KERNELS = {
+    "descend": ("alphazero_general_tpu_torch/csrc/descend.cu",
+                "alphazero_general_tpu/ops/descend.py:44", "descend"),
+    "backup": ("alphazero_general_tpu_torch/csrc/backup.cu",
+               "alphazero_general_tpu/ops/backup.py:26", "backup"),
+    "descend_rows": ("alphazero_general_tpu_torch/csrc/descend.cu",
+                     "alphazero_general_tpu/ops/descend.py:198", "descend"),
+    "backup_rows": ("alphazero_general_tpu_torch/csrc/backup.cu",
+                    "alphazero_general_tpu/ops/backup.py:101", "backup"),
+}
 
 
-def kernel_records(errs, timing, launches, batch: int):
-    """The per-kernel JSON records. ``ms`` is the device time of one launch
-    with L2 flushed before it, on the snapshot the bound is computed from;
+def kernel_record(name: str, kernel: str, t: dict, launches: int,
+                  err: float) -> dict:
+    """One JSON record of ``kernel`` (a key of KERNELS) timed on the
+    snapshot ``t``. ``ms`` is the device time of one launch with L2
+    flushed before it, on the snapshot the bound is computed from;
     ``ms_l2_warm`` the same launch back to back with its inputs in L2;
-    ``host_ms`` the host's time per wrapper call. ``timing`` holds each
-    record's timings by name."""
-    out = []
-    for name, src, replaces, kind in RECORDS:
-        t = timing[name]
-        bound = kernel_bound(kind, t, batch)
-        out.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "max_err": errs[name],
-            "ms": t["ms"], "ms_l2_warm": t["ms_l2_warm"],
-            "call_ms": t["call_ms"], "host_ms": t["host_ms"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": None, "N": t["N"], "B": batch,
-        })
-    return out
+    ``host_ms`` the host's time per wrapper call."""
+    src, replaces, kind = KERNELS[kernel]
+    bound = kernel_bound(kind, t, t["B"])
+    return {
+        "name": name, "route": "cuda", "source": src,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": err, "max_err": err,
+        "ms": t["ms"], "ms_l2_warm": t["ms_l2_warm"],
+        "call_ms": t["call_ms"], "host_ms": t["host_ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "library_ms": None, "N": t["N"], "B": t["B"],
+    }
 
 
 def log_coach(co: dict, smi: str) -> None:
     """The Coach phase's numbers, per iteration."""
-    log(f"  coach cycle through cli.train.main: {co['wall']:.1f} s; cuts "
-        f"{COACH_CUTS}; {co['searches']} searches, {co['simulations']} "
-        f"simulations; launches {co['launches']}; peak memory "
-        f"{co['peak_bytes'] / 2**30:.2f} GiB; card: {smi}")
+    log(f"  {co['env']} coach cycle through cli.train.main: "
+        f"{co['wall']:.1f} s; cuts {co['cuts']}; {co['searches']} searches, "
+        f"{co['simulations']} simulations; launches {co['launches']}; peak "
+        f"memory {co['peak_bytes'] / 2**30:.2f} GiB; card: {smi}")
     for it, r in co["iters"].items():
         t = r["times"]
         log(f"  iteration {it}: " + ", ".join(
@@ -1302,35 +1389,31 @@ def log_coach(co: dict, smi: str) -> None:
             f"{r['train_steps'] / t['train']:.2f} steps/s over the phase; "
             f"losses {r['loss'][0]:.4f} / {r['loss'][1]:.4f}")
         for kind in ("baseline", "past"):
+            if kind not in r:
+                continue
             a = r[kind]
             log(f"    arena {kind}: {a['wins_new']:.0f} / "
                 f"{a['wins_other']:.0f} / {a['draws']:.0f} (new / other / "
                 f"draws) in {a['rounds']:.0f} rounds, "
-                f"{a['games'] / t['arena_' + kind]:.2f} games/s")
-        log(f"    gate: the cut gate promoted iteration {it}; the preset's "
-            f"gate of {r['preset_gate'][0]} would {r['preset_gate'][1]}")
+                f"{a['games'] / t['arena_' + kind]:.2f} games/s, "
+                f"{t['arena_' + kind] * 1e3 / a['rounds']:.1f} ms a round")
+        if "preset_gate" in r:
+            log(f"    gate: the cut gate decided for iteration {it}; the "
+                f"preset's gate of {r['preset_gate'][0]} would "
+                f"{r['preset_gate'][1]}")
 
 
 def log_timing(name: str, t: dict) -> None:
-    bound = kernel_bound(name.split("_")[0], t, GAMES)
-    log(f"  {name} at B={GAMES}, N={t['N']}: {t['ms']:.4f} ms of device time "
+    bound = kernel_bound(name.split("_")[0], t, t["B"])
+    log(f"  {name} at B={t['B']}, N={t['N']}: {t['ms']:.4f} ms of device time "
         f"per launch with L2 flushed, {t['ms_l2_warm']:.4f} ms back to back, "
         f"{t['call_ms']:.4f} ms per wrapper call, {t['host_ms']:.4f} ms of "
         f"host time per call, plain {t['plain_ms']:.2f} ms; bound "
         f"{bound[0]:.6f} ms ({bound[1]})")
 
 
-def main() -> int:
-    t_all = time.perf_counter()
-    t0 = time.perf_counter()
-    name, device_count, smi = device_phase()
-    device = "cuda:0"
-    log(f"phase device: {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    build_phase()
-    log(f"phase build: {time.perf_counter() - t0:.1f} s")
-
+def connect4_phases(device, smi: str) -> list:
+    """Phases 3-8 (connect4); returns their kernel records."""
     env = get_env("connect4")
     args = get_args(seed=SEED, numMCTSSims=SIMS_FULL, numFastSims=SIMS_FAST,
                     **MODEL)
@@ -1339,8 +1422,6 @@ def main() -> int:
     net = NNetWrapper(env, args, device=device)
 
     t0 = time.perf_counter()
-    log(f"  a one-element fill: {launch_floor_ms(device):.4f} ms of device "
-        "time per launch (the least a kernel takes)")
     errs = dict.fromkeys(COUNTED, 0.0)
     timings = {}
     for sims in (SIMS_FULL, SIMS_FAST):
@@ -1432,8 +1513,7 @@ def main() -> int:
     log(f"phase reuse: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    for sims in (SIMS_FAST, SIMS_FULL):
-        breakdown_phase(env, net.make_eval_fn(), spec, GAMES, sims, device)
+    breakdown_phase(env, net.make_eval_fn(), spec, GAMES, SIMS_FAST, device)
     log(f"phase breakdown: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1455,11 +1535,172 @@ def main() -> int:
         f"fed from host arrays: {h['steps_per_s']:.2f} steps/s = "
         f"{h['samples_per_s']:,.0f} samples/s; card: {smi}")
     log(f"phase coach: {time.perf_counter() - t0:.1f} s")
+    return [kernel_record(k, k, timing[k], launches[k], errs[k])
+            for k in KERNELS]
+
+
+#: The brandubh Coach phase: the brandubh preset (envs/presets.py: 1024
+#: games in lockstep, 150 full / 30 fast simulations at probFastSim 0.75,
+#: ResNet 128 x 10 with [2048, 256] / [2048, 512] heads, train batch 1024)
+#: through ``cli.train.main``, cut to two iterations (the first a warmup
+#: one), one lockstep batch of games an iteration (preset: 4096), no
+#: baseline arena (preset: 128 games each iteration), one past arena of 128
+#: games, after iteration 1 (preset: one each iteration), a gate of 0
+#: (preset: 0.52) so that iteration 2 plays the trained network, and the
+#: float tower.
+BRANDUBH_COACH_CUTS = dict(numIters=2, numWarmupIters=1,
+                           gamesPerIteration=1024, compareWithBaseline=False,
+                           pastCompareFreq=2, arenaCompare=128,
+                           min_next_model_winrate=0.0, quant_selfplay=False)
+#: Games and simulations of the tafl reference phase (a hnefatafl search on
+#: the card against the CPU's), and the rows of its table evaluation.
+TAFL_REFERENCE = dict(batch=64, sims=32, rows=1021)
+
+
+def tafl_kernel_phase(device, nets: dict):
+    """Both game-minor kernels against their plain versions at every
+    snapshot of ``TAFL_SNAPSHOTS`` (the presets' self-play searches, the
+    hnefatafl ones timed at their last snapshot) and of a brandubh arena
+    round's search (timed). Returns (max errors, timings)."""
+    errs = {"descend": 0.0, "backup": 0.0}
+    timing = {}
+    runs = [(name, sims, snaps) for (name, sims), snaps
+            in TAFL_SNAPSHOTS.items()] + [("brandubh", "arena", None)]
+    for name, key, snaps in runs:
+        env = get_env(name)
+        args = preset_args(name, seed=SEED)
+        spec = SelfPlayConfig.from_args(args, env.NUM_PLAYERS,
+                                        env.HAS_DRAW).spec
+        batch, sims = int(args.process_batch_size), key
+        timed = name == "hnefatafl"
+        what = f"{sims} simulations"
+        if key == "arena":
+            arena = ArenaConfig.from_args(args, env.NUM_PLAYERS, env.HAS_DRAW)
+            spec, batch, timed = arena.spec, BRANDUBH_ARENA_GAMES, True
+            sims, snaps = arena.sims, (arena.sims // 4, arena.sims - 1)
+            what = f"an arena round's {sims} simulations"
+        log(f"  {name}: B={batch}, {what}")
+        e, t = kernel_phase(env, nets[name].make_eval_fn(), spec, batch,
+                            sims, snaps, device, timed=timed)
+        errs = {k: max(errs[k], e[k]) for k in errs}
+        if timed:
+            timing[(name, key)] = t
+            for k in ("descend", "backup"):
+                log_timing(k, t[k])
+            log(f"  descend needs {t['descend']['bytes']:,} bytes over "
+                f"{t['descend']['depth_sum']:,} walk steps (deepest walk "
+                f"{t['descend']['depth_max']}); backup walks "
+                f"{t['backup']['path_sum']:,} path edges (longest path "
+                f"{t['backup']['path_max']}); games per descend block "
+                f"{OD.games_per_block(t['descend']['N'])}")
+    return errs, timing
+
+
+def prior_layout_phase(device, batch: int, nodes: int, actions: int,
+                       reps: int = 50) -> dict:
+    """Device milliseconds of what a simulation does with the prior rows,
+    in the TreeT's batch-major layout [B, N, A] and in the game-minor one
+    [N*A, B] the connect4 kernels' columns have: the rank-walk pointer
+    advance reads one A-wide row per game at a random node per game, the
+    install writes every game's row at one slot (CUDA events over
+    ``reps`` calls, random rows; on the CPU, the host clock)."""
+    gen = torch.Generator(device).manual_seed(SEED + 8)
+    bm = torch.rand((batch, nodes, actions), generator=gen, device=device)
+    gm = bm.permute(1, 2, 0).reshape(nodes * actions, batch).contiguous()
+    games = torch.arange(batch, device=device)
+    rows = torch.randint(0, nodes, (batch,), generator=gen, device=device)
+    new = torch.rand((batch, actions), generator=gen, device=device)
+    slot = nodes // 2
+    check(torch.equal(bm[games, rows],
+                      gm.view(nodes, actions, batch)[rows, :, games]),
+          "the two prior layouts disagree")
+
+    def gm_write():
+        gm[slot * actions:(slot + 1) * actions] = new.T
+
+    out = dict(
+        read_batch_major=time_ms(lambda: bm[games, rows], reps, device),
+        read_game_minor=time_ms(
+            lambda: gm.view(nodes, actions, batch)[rows, :, games], reps,
+            device),
+        write_batch_major=time_ms(lambda: bm[:, slot].copy_(new), reps,
+                                  device),
+        write_game_minor=time_ms(gm_write, reps, device))
+    log(f"  prior rows at B={batch}, N={nodes}, A={actions}: a row per game "
+        f"read {out['read_batch_major']:.4f} ms batch-major, "
+        f"{out['read_game_minor']:.4f} ms game-minor; a slot written "
+        f"{out['write_batch_major']:.4f} / {out['write_game_minor']:.4f} ms")
+    del bm, gm
+    return out
+
+
+def tafl_phases(device, smi: str) -> list:
+    """Phases 9-12 (tafl); returns their kernel records."""
+    nets = {}
+    for name in ("hnefatafl", "brandubh"):
+        nets[name] = NNetWrapper(get_env(name), preset_args(name, seed=SEED),
+                                 device=device)
+
+    t0 = time.perf_counter()
+    errs, timing = tafl_kernel_phase(device, nets)
+    env = get_env("hnefatafl")
+    args = preset_args("hnefatafl", seed=SEED)
+    cfg = SelfPlayConfig.from_args(args, env.NUM_PLAYERS, env.HAS_DRAW)
+    batch = int(args.process_batch_size)
+    prior_layout_phase(device, batch, cfg.sims_full + 3, env.ACTION_SIZE)
+    log(f"phase tafl kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    sp = selfplay_phase(env, nets["hnefatafl"].model, cfg, batch, CYCLE,
+                        device)
+    log(f"  hnefatafl self-play: {sp['sims_per_s']:,.0f} sims/s over "
+        f"{len(sp['moves'])} moves ({sp['wall_ms_per_sim']:.3f} ms a "
+        f"simulation of {batch} games); launches {sp['launches']}; peak "
+        f"memory {sp['peak_bytes'] / 2**30:.2f} GiB; card: {smi}")
+    b = breakdown_phase(env, nets["hnefatafl"].make_eval_fn(), cfg.spec,
+                        batch, cfg.sims_fast, device)
+    log(f"  hnefatafl {cfg.sims_fast}-sim search: the env step and "
+        f"expansion (stage expand) {b['device_ms']['expand']:.4f} ms of "
+        f"device time and {b['host_ms']['expand']:.4f} ms of host time a "
+        f"simulation, of {b['wall_ms_per_sim']:.3f} ms wall")
+    log(f"phase hnefatafl self-play: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    reference_phase(env, device, **TAFL_REFERENCE)
+    log(f"phase tafl reference: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    del nets
+    with tempfile.TemporaryDirectory() as root:
+        co = coach_phase(device, root, BRANDUBH_COACH_CUTS, "brandubh")
+        log_coach(co, smi)
+    log(f"phase brandubh coach: {time.perf_counter() - t0:.1f} s")
+    return [kernel_record(f"{k}@{name}", k, timing[key][k],
+                          launches[k], errs[k])
+            for name, key, launches in (
+                ("hnefatafl", ("hnefatafl", cfg.sims_full), sp["launches"]),
+                ("brandubh", ("brandubh", "arena"), co["launches"]))
+            for k in ("descend", "backup")]
+
+
+def main() -> int:
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    name, device_count, smi = device_phase()
+    device = "cuda:0"
+    log(f"phase device: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    build_phase()
+    log(f"phase build: {time.perf_counter() - t0:.1f} s")
+    log(f"  a one-element fill: {launch_floor_ms(device):.4f} ms of device "
+        "time per launch (the least a kernel takes)")
+
+    records = connect4_phases(device, smi) + tafl_phases(device, smi)
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
     log(smi)
-    log(json.dumps({"kernels": kernel_records(errs, timing, launches,
-                                              GAMES)}))
+    log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": device_count}}))
     return 0

@@ -1,6 +1,8 @@
 """The CUDA kernels on the card: each against its plain PyTorch version, in
-both tree layouts, a whole search and a reuse move on the card against the
-same on the CPU, and the wrappers' input checks.
+both tree layouts and at the tafl presets' search shapes, whole searches
+(connect4, hnefatafl), a reuse move and arenas (connect4, brandubh) on the
+card against the same on the CPU, a tafl search that never waits for the
+device, and the wrappers' input checks.
 
 Every test here is marked ``gpu`` and skips, by a decision taken inside
 the test, where there is no CUDA device. This file imports neither JAX nor
@@ -451,3 +453,164 @@ def test_cuda_train_step_matches_cpu():
     for k, x in nets[0].model.state_dict().items():
         np.testing.assert_allclose(x.cpu().numpy(), want[k].numpy(),
                                    rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def _table_eval(env, rows=509, seed=0):
+    """Table lookup on an integer hash of the piece planes (every plane but
+    colour and turn): bit-identical policy and value rows on any device."""
+    rng = np.random.default_rng(seed)
+    planes = env.OBS_SHAPE[0] - 2
+    pi_tab = torch.from_numpy(
+        rng.dirichlet(np.ones(env.ACTION_SIZE), rows).astype(np.float32))
+    v_tab = torch.from_numpy(rng.dirichlet(np.ones(3), rows).astype(
+        np.float32))
+    w = torch.from_numpy(rng.integers(1, rows, size=(
+        planes * env.OBS_SHAPE[1] * env.OBS_SHAPE[2],)))
+    on = {}  # device -> the tables there, copied once
+
+    def eval_fn(obs):
+        dev = obs.device
+        if dev not in on:
+            on[dev] = [x.to(dev) for x in (pi_tab, v_tab, w)]
+        pi_d, v_d, w_d = on[dev]
+        pieces = (obs[:, :planes] > 0.5).reshape(obs.shape[0], -1).long()
+        h = (pieces * w_d).sum(dim=1) % rows
+        return pi_d[h], v_d[h]
+
+    return eval_fn
+
+
+def _tafl_openings(env, batch, dev, plies=8, seed=2):
+    """Games advanced by 0..plies random legal moves, made on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    s = env.init(batch, "cpu")
+    stop = torch.randint(0, plies + 1, (batch,), generator=gen)
+    for ply in range(plies):
+        a = torch.multinomial(env.valid_moves(s).float(), 1, generator=gen)
+        nxt = env.step(s, a[:, 0])
+        keep = (stop > ply) & ~env.terminated(nxt)
+        s = env.State(**{
+            k: torch.where(keep.reshape((-1,) + (1,) * (x.dim() - 1)),
+                           getattr(nxt, k), x)
+            for k, x in state_items(s).items()})
+    return env.State(**{k: x.to(dev) for k, x in state_items(s).items()})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,sims", [
+    ("hnefatafl", 512, 250), ("hnefatafl", 512, 50), ("brandubh", 1024, 150),
+    ("brandubh", 1024, 30), ("brandubh", 128, 150)])
+def test_cuda_kernels_match_plain_on_tafl_searches(name, B, sims):
+    """Both game-minor kernels bit for bit against their plain versions at
+    the tafl presets' shapes (hnefatafl: N = 253 and 53 at B = 512;
+    brandubh: N = 153 and 33 at B = 1024, and the arena's 128 games), at a
+    quarter, half and all but one of the simulations of a search."""
+    dev = _cuda()
+    env = get_env(name)
+    spec = SearchSpec(**SPEC_KW)
+    eval_fn = _table_eval(env)
+    tt = init_tree_t(env, _tafl_openings(env, B, dev), sims + 2, 3)
+    gen = torch.Generator(dev).manual_seed(0)
+    S._simulate_step_t(env, tt, spec, eval_fn, True, 0, True, generator=gen)
+    checked = 0
+    for slot in range(1, sims):
+        if slot not in (sims // 4, sims // 2, sims - 1):
+            S._simulate_step_t(env, tt, spec, eval_fn, False, slot,
+                               generator=gen)
+            continue
+        cols = [getattr(tt, c) for c in COLUMNS]
+        got = OD.descend_columns(*cols, spec)
+        torch.cuda.synchronize()
+        want = OD.descend_plain(*cols, spec.cpuct, spec.fpu_reduction)
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w))
+        values = S._leaf_step_t(env, tt, spec, eval_fn, False, slot, False,
+                                gen)
+        args = (tt.parent, tt.player, tt.leaf, values, tt.max_depth)
+        k_nqv = [tt.n.clone(), tt.q.clone(), tt.v.clone()]
+        OB.backup_columns_(*args, *k_nqv, spec)
+        torch.cuda.synchronize()
+        OB.backup_plain_(*args, tt.n, tt.q, tt.v, spec)
+        for g, w in zip(k_nqv, (tt.n, tt.q, tt.v)):
+            assert torch.equal(_bits(g), _bits(w))
+        checked += 1
+    assert checked == 3 and (tt.n[0] == sims).all()
+
+
+@pytest.mark.gpu
+def test_cuda_hnefatafl_search_matches_cpu():
+    """A hnefatafl search (64 games, 32 simulations, no random draws)
+    through the kernels and the env on the card, equal to the same search
+    through the plain versions on the CPU: visit counts and tree links
+    equal, values within 1e-6."""
+    dev = _cuda()
+    env = get_env("hnefatafl")
+    spec = SearchSpec(**dict(SPEC_KW, tie_noise=0.0))
+    trees = []
+    for d in (dev, "cpu"):
+        tt = init_tree_t(env, _tafl_openings(env, 64, d), 34, 3)
+        trees.append(S.search(env, tt, spec, _table_eval(env), 32))
+    got, want = trees
+    for name in ("n", "parent", "parent_action", "nba"):
+        assert torch.equal(getattr(got, name)[:-1].cpu(),
+                           getattr(want, name)[:-1]), name
+    for name in ("q", "v", "nbp"):
+        torch.testing.assert_close(getattr(got, name)[:-1].cpu(),
+                                   getattr(want, name)[:-1], rtol=1e-6,
+                                   atol=1e-6)
+    assert torch.equal(T.counts(got).cpu(), T.counts(want))
+
+
+@pytest.mark.gpu
+def test_cuda_brandubh_arena_matches_cpu():
+    """A brandubh arena (32 games, 16 simulations, the table evaluation
+    against the RawMCTS baseline, draws at the 100-move cap) through the
+    kernels and the env on the card, equal to the same arena on the CPU
+    with the same draws; every simulation launched both kernels."""
+    from alphazero_general_tpu_torch.selfplay import arena as A
+
+    dev = _cuda()
+    env = get_env("brandubh")
+    table = _table_eval(env)
+
+    def table_apply(obs):
+        pi, v = table(obs)
+        return torch.log(pi), torch.log(v)
+
+    cfg = A.ArenaConfig(sims=16, arena_temp=1.0)
+    fns = [table_apply, A.raw_mcts_apply(env.ACTION_SIZE, 3)]
+    before = (OD.descend_columns.launches, OB.backup_columns_.launches)
+    got = A.play_games_multi(env, cfg, fns, 32, draws=_arena_draws(5),
+                             device=dev)
+    launched = (OD.descend_columns.launches - before[0],
+                OB.backup_columns_.launches - before[1])
+    want = A.play_games_multi(env, cfg, fns, 32, draws=_arena_draws(5),
+                              device="cpu")
+    assert torch.equal(got.model_wins, want.model_wins)
+    assert got.draws == want.draws and got.rounds == want.rounds
+    assert got.avg_game_length == want.avg_game_length
+    assert launched == (got.rounds * (cfg.sims - 1), got.rounds * cfg.sims)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["hnefatafl", "brandubh"])
+def test_cuda_tafl_search_never_waits_for_the_device(name):
+    """A tafl search on the card (env steps, kernels, prior installs, tie
+    noise from a generator) makes no call that waits for the device:
+    CUDA's sync debug mode turns any such call into an error."""
+    dev = _cuda()
+    env = get_env(name)
+    roots = _tafl_openings(env, 64, dev)
+    eval_fn = _table_eval(env)
+    spec = SearchSpec(**SPEC_KW)
+    gen = torch.Generator(dev).manual_seed(0)
+    S.search(env, init_tree_t(env, roots, 10, 3), spec, eval_fn, 8,
+             generator=gen)  # warm-up: tables, allocator, library load
+    tt = init_tree_t(env, roots, 34, 3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        S.search(env, tt, spec, eval_fn, 32, generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (tt.n[0] == 32).all()

@@ -8,6 +8,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import tempfile
 
 import pytest
 import torch
@@ -154,8 +155,9 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert rows_errs == {"descend_rows": 0.0, "backup_rows": 0.0}
     assert C.in_place_phase(lambda: None, "cpu") == {}
     timing.update(rows_timing)
-    records = C.kernel_records(dict(errs, **rows_errs), timing,
-                               sp["launches"], 8)
+    errs.update(rows_errs)
+    records = [C.kernel_record(k, k, timing[k], sp["launches"][k], errs[k])
+               for k in C.KERNELS]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "host_ms", "N", "B"}
@@ -210,3 +212,58 @@ def test_chip_smoke_coach_phase_rehearses_on_cpu(tmp_path, capsys):
     net = NNetWrapper(get_env("connect4"), args, device="cpu")
     assert C.coach_shapes_phase(get_env("connect4"), net, "cpu", args) == {
         "descend": 0.0, "backup": 0.0}
+
+
+def test_chip_smoke_tafl_phases_rehearse_on_cpu(tmp_path, capsys,
+                                                monkeypatch):
+    """The tafl phases (the kernels at tafl search snapshots, hnefatafl
+    self-play with its sparse records and breakdown, the reference search,
+    and the brandubh Coach through cli.train.main with its checks) at a
+    tiny size on the CPU, and their four kernel records."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke as C
+    finally:
+        sys.path.remove(str(REPO))
+    tiny = dict(process_batch_size=8, numMCTSSims=12, numFastSims=4,
+                numWarmupSims=3, num_channels=8, depth=1,
+                value_head_channels=2, policy_head_channels=2,
+                value_dense_layers=[16], policy_dense_layers=[16],
+                deviceWindowRows=16384, train_batch_size=64)
+    preset = C.preset_args
+    monkeypatch.setattr(C, "preset_args",
+                        lambda name, **kw: preset(name, **{**tiny, **kw}))
+    monkeypatch.setattr(C, "TAFL_SNAPSHOTS", {
+        ("hnefatafl", 12): (3, 11), ("hnefatafl", 4): (2, 3),
+        ("brandubh", 12): (3, 11), ("brandubh", 4): (3,)})
+    monkeypatch.setattr(C, "BRANDUBH_ARENA_GAMES", 8)
+    monkeypatch.setattr(C, "TAFL_REFERENCE", dict(batch=8, sims=8, rows=101))
+    monkeypatch.setattr(C, "HOST_CALLS", 2)
+    monkeypatch.setattr(C, "BRANDUBH_COACH_CUTS", dict(
+        C.BRANDUBH_COACH_CUTS, gamesPerIteration=8, arenaCompare=8, **tiny))
+    monkeypatch.setattr(tempfile, "TemporaryDirectory",
+                        lambda: _Dir(tmp_path))
+    records = C.tafl_phases("cpu", "cpu")
+    out = capsys.readouterr().out
+    assert [r["name"] for r in records] == [
+        "descend@hnefatafl", "backup@hnefatafl", "descend@brandubh",
+        "backup@brandubh"]
+    assert [(r["N"], r["B"]) for r in records] == [(15, 8)] * 4
+    assert all(r["max_abs_err"] == 0.0 and r["launches"] == 0
+               and r["bound_ms"] > 0 for r in records)
+    assert "hnefatafl self-play" in out and "(stage expand)" in out
+    assert "brandubh coach cycle through cli.train.main" in out
+    assert "arena past" in out and "arena baseline" not in out
+
+
+class _Dir:
+    """A TemporaryDirectory stand-in that yields a pytest tmp_path."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __enter__(self):
+        return str(self.path)
+
+    def __exit__(self, *exc):
+        return False

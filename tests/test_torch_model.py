@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from alphazero_general_tpu.envs.connect4 import Connect4 as JConnect4
+from alphazero_general_tpu.envs import get_env as j_get_env
 from alphazero_general_tpu.models.wrapper import NNetWrapper as JWrapper
 from alphazero_general_tpu.utils.config import get_args as j_get_args
 from alphazero_general_tpu_torch.envs import get_env
@@ -51,12 +51,13 @@ def randomize_norms(variables, seed=0):
     return out
 
 
-def jax_and_port(dtype: str, seed: int = 0):
-    """A JAX wrapper and a port wrapper holding the same converted weights."""
-    jnet = JWrapper(JConnect4, j_get_args(compute_dtype=dtype, seed=seed,
-                                          **SMALL))
+def jax_and_port(dtype: str, seed: int = 0, env_name: str = "connect4"):
+    """A JAX wrapper and a port wrapper of the env ``env_name`` holding the
+    same converted weights."""
+    jnet = JWrapper(j_get_env(env_name),
+                    j_get_args(compute_dtype=dtype, seed=seed, **SMALL))
     variables = randomize_norms(jnet.state.variables, seed)
-    net = NNetWrapper(get_env("connect4"),
+    net = NNetWrapper(get_env(env_name),
                       get_args(compute_dtype=dtype, **SMALL), device="cpu")
     net.load_jax_variables(variables)
     return jnet, variables, net

@@ -169,8 +169,10 @@ def test_install_prior_matches_jax_with_injected_draws():
                        gammas=torch.from_numpy(gammas),
                        tie=torch.from_numpy(tie))
 
+    # JAX keeps connect4's prior rows game-minor [N*A, B], the port
+    # batch-major [B, N, A].
     rows = slice(slot * A, (slot + 1) * A)
-    np.testing.assert_allclose(tt.prior[rows].numpy(),
+    np.testing.assert_allclose(tt.prior[:, slot].T.numpy(),
                                np.asarray(jt.prior)[rows], rtol=1e-6,
                                atol=1e-7)
     np.testing.assert_array_equal(tt.nba[slot].numpy(),
@@ -182,7 +184,7 @@ def test_install_prior_matches_jax_with_injected_draws():
     root = leaf == 0
     masked = np.where(valids, pi, 0)
     masked /= masked.sum(-1, keepdims=True)
-    assert not np.allclose(tt.prior[rows].T.numpy()[root], masked[root],
+    assert not np.allclose(tt.prior[:, slot].numpy()[root], masked[root],
                            atol=1e-3)
 
 
@@ -196,7 +198,7 @@ def test_install_prior_draws_from_generator_when_not_given():
         TT.install_prior_t(tt, pi, T.SearchSpec(), True, 0, valids)
     TT.install_prior_t(tt, pi, T.SearchSpec(), True, 0, valids,
                        generator=torch.Generator().manual_seed(0))
-    prior = tt.prior[:7].T
+    prior = tt.prior[:, 0]
     assert torch.allclose(prior.sum(-1), torch.ones(B), atol=1e-4)
     assert not torch.allclose(prior[0], prior[1])  # each game drew its own
 

@@ -160,3 +160,32 @@ def test_checkpoint_round_trip(tmp_path):
     (tmp_path / "bad.ckpt").write_bytes(b"\x82\xa6params\x80")
     with pytest.raises(ValueError, match="not a checkpoint"):
         back.load_checkpoint(str(tmp_path), "bad")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_inference_caches_follow_weight_changes(dtype):
+    """Inference reuses the cast weights and BatchNorm scales; after a
+    train step, and after a checkpoint load into a net that has already
+    run inference, its outputs are those of a fresh net with the same
+    weights."""
+    env = get_env("connect4")
+    args = get_args(**SMALL, compute_dtype=dtype)
+    net = NNetWrapper(env, args, device="cpu")
+    obs, pi, value = _samples(32, seed=5)
+    o = torch.from_numpy(obs.astype(np.float32))
+
+    def fresh_outputs(src):
+        twin = NNetWrapper(env, args, device="cpu")
+        twin.model.load_state_dict(src.model.state_dict())
+        return twin.process(o)
+
+    before = net.process(o)
+    net.train([(obs[:16], pi[:16], value[:16])], 1, iteration=0)
+    after = net.process(o)
+    for a, b, c in zip(after, fresh_outputs(net), before):
+        assert torch.equal(a, b) and not torch.equal(a, c)
+    other = NNetWrapper(env, get_args(**SMALL, compute_dtype=dtype,
+                                      seed=9), device="cpu")
+    net.model.load_state_dict(other.model.state_dict())
+    for a, b in zip(net.process(o), other.process(o)):
+        assert torch.equal(a, b)
