@@ -3,8 +3,9 @@
 [--args-file FILE] [--device cuda|cpu]`` — the port of
 alphazero_general_tpu/cli/train.py (reference: alphazero/envs/*/train.py).
 
-Until the int8 self-play tower is ported, pass ``--set
-quant_selfplay=False`` (the default, True, raises).
+The defaults are the JAX package's: self-play after the warmup and both
+arenas run the int8 tower (``quant_selfplay=True``; ``--set
+quant_selfplay=False`` keeps the float one).
 """
 
 from __future__ import annotations

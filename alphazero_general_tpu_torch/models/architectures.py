@@ -4,7 +4,9 @@ alphazero/NNetArchitecture.py:36-162).
 
 Same topology as the JAX ResNet: a 3x3 conv stem with BatchNorm and ReLU,
 ``depth`` pre-activation residual blocks, and 1x1-conv heads with ELU MLPs;
-the value head is a softmax over num_players + has_draw.
+the value head is a softmax over num_players + has_draw. ``norm`` selects
+BatchNorm or flax's GroupNorm, as in the JAX package. ``FullyConnected`` is
+the JAX package's flat MLP variant (``nnet_type="fc"``).
 
 Numerics follow the JAX package's ``compute_dtype``: parameters are float32,
 each conv and dense layer runs in the compute dtype (bfloat16 by default),
@@ -25,6 +27,7 @@ keeps the converted dense weights as they are (utils/convert.py).
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -99,6 +102,50 @@ class Norm(nn.Module):
         return y.to(x.dtype)
 
 
+class GroupNorm(nn.Module):
+    """GroupNorm as flax's ``nn.GroupNorm`` computes it (flax 0.12, with
+    the JAX package's ``group_size=min(16, C)``): per sample, over (H, W)
+    and the channels of each group of ``group_size`` consecutive ones, the
+    mean and ``E[x^2] - E[x]^2`` clipped at 0 in float32; then
+    ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias`` in float32 with
+    epsilon 1e-6, rounded to the input's dtype. The same in training and
+    in eval mode: it keeps no running statistics."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.group_size = min(16, channels)
+        if channels % self.group_size:
+            raise ValueError(f"GroupNorm: {channels} channels are not a "
+                             f"multiple of the group size {self.group_size}")
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[:2]
+        xf = x.to(torch.float32)
+        grouped = xf.reshape(b, c // self.group_size, -1)
+        mean = grouped.mean(dim=-1)
+        var = torch.clamp((grouped * grouped).mean(dim=-1) - mean * mean,
+                          min=0.0)
+        mean = mean.repeat_interleave(self.group_size, dim=1)
+        mul = torch.rsqrt(var.repeat_interleave(self.group_size, dim=1)
+                          + self.eps) * self.weight
+        shape = (b, c) + (1,) * (x.dim() - 2)
+        y = (xf - mean.view(shape)) * mul.view(shape) \
+            + self.bias.view((1, c) + (1,) * (x.dim() - 2))
+        return y.to(x.dtype)
+
+
+def make_norm(kind: str, channels: int) -> nn.Module:
+    """The normalisation of ``norm=kind``: "batchnorm" or "groupnorm"."""
+    if kind == "batchnorm":
+        return Norm(channels)
+    if kind == "groupnorm":
+        return GroupNorm(channels)
+    raise ValueError(f"Unknown norm {kind!r}")
+
+
 def _cast(module: nn.Module, name: str, dtype) -> torch.Tensor:
     """The parameter ``name`` of ``module`` in ``dtype``; without autograd,
     the cast made once per change of the parameter."""
@@ -133,11 +180,11 @@ class Dense(nn.Linear):
 class ResidualBlock(nn.Module):
     """Pre-activation residual block (NNetArchitecture.py:36-66)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, norm: str = "batchnorm"):
         super().__init__()
-        self.norm1 = Norm(channels)
+        self.norm1 = make_norm(norm, channels)
         self.conv1 = Conv(channels, channels, 3)
-        self.norm2 = Norm(channels)
+        self.norm2 = make_norm(norm, channels)
         self.conv2 = Conv(channels, channels, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -175,20 +222,22 @@ class ResNet(nn.Module):
                  policy_head_channels: int = 16,
                  value_dense_layers: Sequence[int] = (512, 64),
                  policy_dense_layers: Sequence[int] = (512, 256),
+                 norm: str = "batchnorm",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         c, h, w = obs_shape
         self.dtype = dtype
+        self.norm = norm
         self.stem_conv = Conv(c, num_channels, 3)
-        self.stem_norm = Norm(num_channels)
+        self.stem_norm = make_norm(norm, num_channels)
         self.blocks = nn.ModuleList(
-            ResidualBlock(num_channels) for _ in range(depth))
+            ResidualBlock(num_channels, norm) for _ in range(depth))
         self.value_conv = Conv(num_channels, value_head_channels, 1)
-        self.value_norm = Norm(value_head_channels)
+        self.value_norm = make_norm(norm, value_head_channels)
         self.value_mlp = Mlp(value_head_channels * h * w, value_dense_layers,
                              value_size)
         self.policy_conv = Conv(num_channels, policy_head_channels, 1)
-        self.policy_norm = Norm(policy_head_channels)
+        self.policy_norm = make_norm(norm, policy_head_channels)
         self.policy_mlp = Mlp(policy_head_channels * h * w,
                               policy_dense_layers, action_size)
 
@@ -209,13 +258,39 @@ class ResNet(nn.Module):
                 F.log_softmax(v.to(torch.float32), dim=-1))
 
 
+class FullyConnected(nn.Module):
+    """Flat MLP variant (NNetArchitecture.py:123-162): the whole
+    observation flattened in (C, H, W) order (the reference sizes its input
+    as ``sum(observation_size())``, C + H + W, a bug the JAX package fixes),
+    ReLU dense layers, then the two ELU MLP heads."""
+
+    def __init__(self, obs_shape, action_size: int, value_size: int,
+                 input_fc_layers: Sequence[int] = (1024,) * 4,
+                 value_dense_layers: Sequence[int] = (512, 64),
+                 policy_dense_layers: Sequence[int] = (512, 256),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        sizes = [math.prod(obs_shape), *input_fc_layers]
+        self.input_layers = nn.ModuleList(
+            Dense(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+        self.value_mlp = Mlp(sizes[-1], value_dense_layers, value_size)
+        self.policy_mlp = Mlp(sizes[-1], policy_dense_layers, action_size)
+
+    def forward(self, obs: torch.Tensor):
+        x = obs.reshape(obs.shape[0], -1).to(self.dtype)
+        for layer in self.input_layers:
+            x = F.relu(layer(x))
+        v = self.value_mlp(x)
+        pi = self.policy_mlp(x)
+        return (F.log_softmax(pi.to(torch.float32), dim=-1),
+                F.log_softmax(v.to(torch.float32), dim=-1))
+
+
 def build_model(env, args) -> nn.Module:
-    """Model factory from args (NNetWrapper.py:111-117), in eval mode.
-    Raises ValueError for the FC net and GroupNorm, not ported yet."""
-    if args.get("nnet_type", "resnet") != "resnet":
-        raise ValueError(f"nnet_type {args.nnet_type!r} is not ported yet")
-    if args.get("norm", "batchnorm") != "batchnorm":
-        raise ValueError(f"norm {args.norm!r} is not ported yet")
+    """Model factory from args (NNetWrapper.py:111-117), in eval mode:
+    the ResNet (``nnet_type="resnet"``, with ``norm`` "batchnorm" or
+    "groupnorm") or the FC net (``"fc"``)."""
     # TF32 off for both convolutions and matrix products. The default
     # compute dtype, bfloat16, never uses TF32; float32 mode exists to match
     # the JAX reference, which computes float32 in full float32, while cuDNN
@@ -224,16 +299,32 @@ def build_model(env, args) -> nn.Module:
     torch.backends.cuda.matmul.allow_tf32 = False
     dtype = (torch.bfloat16 if args.get("compute_dtype", "bfloat16")
              == "bfloat16" else torch.float32)
-    model = ResNet(
-        obs_shape=env.OBS_SHAPE,
-        action_size=env.ACTION_SIZE,
-        value_size=env.NUM_PLAYERS + int(env.HAS_DRAW),
-        num_channels=args.num_channels,
-        depth=args.depth,
-        value_head_channels=args.value_head_channels,
-        policy_head_channels=args.policy_head_channels,
-        value_dense_layers=tuple(args.value_dense_layers),
-        policy_dense_layers=tuple(args.policy_dense_layers),
-        dtype=dtype,
-    )
+    value_size = env.NUM_PLAYERS + int(env.HAS_DRAW)
+    kind = args.get("nnet_type", "resnet")
+    if kind == "resnet":
+        model = ResNet(
+            obs_shape=env.OBS_SHAPE,
+            action_size=env.ACTION_SIZE,
+            value_size=value_size,
+            num_channels=args.num_channels,
+            depth=args.depth,
+            value_head_channels=args.value_head_channels,
+            policy_head_channels=args.policy_head_channels,
+            value_dense_layers=tuple(args.value_dense_layers),
+            policy_dense_layers=tuple(args.policy_dense_layers),
+            norm=args.get("norm", "batchnorm"),
+            dtype=dtype,
+        )
+    elif kind == "fc":
+        model = FullyConnected(
+            obs_shape=env.OBS_SHAPE,
+            action_size=env.ACTION_SIZE,
+            value_size=value_size,
+            input_fc_layers=tuple(args.input_fc_layers),
+            value_dense_layers=tuple(args.value_dense_layers),
+            policy_dense_layers=tuple(args.policy_dense_layers),
+            dtype=dtype,
+        )
+    else:
+        raise ValueError(f"Unknown nnet_type {kind!r}")
     return model.eval()

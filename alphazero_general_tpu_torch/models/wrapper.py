@@ -13,10 +13,13 @@ alphazero/NNetWrapper.py:86-282).
   batch is replaced by its ``sym_idx``-th symmetric image on the device.
 * Window mode: with ``set_device_window(True)`` a batch is the
   ``DeviceWindow``'s buffers plus row indices, gathered on the device.
-* Checkpoints are the port's own format: ``<name>.ckpt`` is a
+* Checkpoints are saved in the port's own format: ``<name>.ckpt`` is a
   ``torch.save`` of the model's and the optimizer's state dicts and the step
-  count, ``<name>.json`` the args. Flax checkpoints of the JAX package are
-  not loadable yet.
+  count, ``<name>.json`` the args. ``load_checkpoint`` also reads the JAX
+  package's (``flax.serialization.to_bytes`` of its ``NetState``): params,
+  batch statistics, the optax trace as SGD's momentum buffers, and step.
+* ``quantized_inference`` builds the int8 tower (models/quant.py) from the
+  current weights, the JAX package's ``quant_selfplay`` path.
 """
 
 from __future__ import annotations
@@ -33,7 +36,11 @@ from alphazero_general_tpu_torch.models.architectures import build_model
 from alphazero_general_tpu_torch.utils.config import (
     Args, get_args, load_args_file, save_args_file,
 )
-from alphazero_general_tpu_torch.utils.convert import resnet_state_dict
+from alphazero_general_tpu_torch.utils.convert import state_dict_from_jax
+from alphazero_general_tpu_torch.utils.flax_bytes import from_bytes
+
+#: The first bytes of a ``torch.save`` file (a zip archive).
+_TORCH_MAGIC = b"PK"
 
 #: Train steps enqueued ahead of the oldest loss the host reads back.
 PIPE = 16
@@ -71,6 +78,8 @@ class NNetWrapper:
             weight_decay=float(opt.get("weight_decay", 0.0)),
             nesterov=bool(opt.get("nesterov", False)))
         self.step = 0
+        #: The int8 tower of ``quantized_inference``, re-quantized in place.
+        self.quant_model = None
         self._sym_env = None
         self._window_mode = False
         self.l_pi = 0.0
@@ -79,7 +88,7 @@ class NNetWrapper:
     def load_jax_variables(self, variables) -> None:
         """Load flax ``{"params", "batch_stats"}`` (numpy leaves) converted
         by utils/convert.py."""
-        self.model.load_state_dict(resnet_state_dict(variables))
+        self.model.load_state_dict(state_dict_from_jax(variables))
 
     # ------------------------------------------------------------------ eval
     @torch.inference_mode()
@@ -92,6 +101,34 @@ class NNetWrapper:
     def make_eval_fn(self):
         """EvalFn over the current weights, for the search."""
         return self.process
+
+    def quantized_inference(self, calib_obs=None, generator=None,
+                            actions=None):
+        """The int8 tower of the current weights (JAX wrapper.py:202-232):
+        a ``QuantResNet`` on the wrapper's device whose ``forward(obs)``
+        gives ``(log_pi, log_v)`` as the model's does. Its activation
+        scales are calibrated on ``calib_obs`` (float32 observations), else
+        on random playouts drawn from ``generator`` (default: seeded with
+        ``args.seed``) or taken from ``actions``. One module per wrapper,
+        re-quantized in place by each call, so runners built over it
+        follow. Raises ValueError, before any playout, for architectures
+        without an int8 path (the FC net, GroupNorm towers)."""
+        from alphazero_general_tpu_torch.models.quant import (
+            calibration_observations, check_quantizable, quantize_resnet,
+        )
+
+        check_quantizable(self.model)
+        if calib_obs is None:
+            if generator is None and actions is None:
+                generator = torch.Generator(self.device).manual_seed(
+                    int(self.args.get("seed", 0)))
+            calib_obs = calibration_observations(
+                self.env, generator=generator, actions=actions,
+                device=self.device)
+        self.quant_model = quantize_resnet(
+            self.model, calib_obs.to(self.device, torch.float32),
+            out=self.quant_model)
+        return self.quant_model
 
     # ----------------------------------------------------------------- train
     def set_device_symmetries(self, env) -> None:
@@ -224,21 +261,62 @@ class NNetWrapper:
 
     def load_checkpoint(self, folder: str, filename: str) -> None:
         """Load weights, optimizer state and step in place (closures over
-        ``self.model`` see the new weights)."""
+        ``self.model`` see the new weights), from the port's checkpoint or
+        the JAX package's flax one."""
         path = os.path.join(folder, filename) + ".ckpt"
+        with open(path, "rb") as f:
+            data = f.read()
+        if data.startswith(_TORCH_MAGIC):
+            self._load_torch(path)
+        else:
+            self._load_flax(path, data)
+
+    def _load_torch(self, path: str) -> None:
         try:
             payload = torch.load(path, map_location=self.device,
                                  weights_only=True)
         except (pickle.UnpicklingError, EOFError, RuntimeError) as e:
-            raise ValueError(f"{path} is not a checkpoint of this package "
-                             "(flax checkpoints of the JAX package are not "
-                             f"loadable yet): {e}") from e
+            raise ValueError(f"{path} is not a checkpoint of either "
+                             f"package: {e}") from e
         if not isinstance(payload, dict) or payload.get("format") != \
                 "alphazero_general_tpu_torch":
             raise ValueError(f"{path} is not a checkpoint of this package")
         self.model.load_state_dict(payload["model"])
         self.optimizer.load_state_dict(payload["optimizer"])
         self.step = int(payload["step"])
+
+    def _load_flax(self, path: str, data: bytes) -> None:
+        """A ``NetState`` of the JAX package: params and batch statistics
+        through utils/convert.py; the optax chain's ``trace`` (state 1 of
+        ``add_decayed_weights``, ``trace``; wrapper.py:59-65 of the JAX
+        package) as each parameter's SGD momentum buffer, which follows the
+        same update; and ``step``."""
+        try:
+            tree = from_bytes(data)
+        except ValueError as e:
+            raise ValueError(f"{path} is not a checkpoint of either "
+                             f"package: {e}") from e
+        if not isinstance(tree, dict) or not {
+                "params", "batch_stats", "opt_state", "step"} <= set(tree):
+            raise ValueError(f"{path} is not a checkpoint of either package "
+                             "(no flax NetState)")
+        stats = tree["batch_stats"]
+        try:
+            state = state_dict_from_jax({"params": tree["params"],
+                                         "batch_stats": stats})
+            self.model.load_state_dict(state)
+        except (KeyError, RuntimeError) as e:
+            raise ValueError(f"{path}: the flax NetState does not fit this "
+                             f"wrapper's model: {e}") from e
+        self.optimizer.state.clear()
+        trace = tree["opt_state"].get("1", {}).get("trace")
+        if trace:
+            buffers = state_dict_from_jax({"params": trace,
+                                           "batch_stats": stats})
+            for name, param in self.model.named_parameters():
+                self.optimizer.state[param] = {
+                    "momentum_buffer": buffers[name].to(self.device)}
+        self.step = int(tree["step"])
 
     @classmethod
     def from_checkpoint(cls, env, folder: str, filename: str,

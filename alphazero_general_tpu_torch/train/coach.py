@@ -9,6 +9,16 @@ arena against the gated self-play model and the gating decision; then the
 run state. Iteration structure, gating rules, window, resume and metric
 tags are the JAX package's.
 
+With ``quant_selfplay`` (the default) self-play after the warmup and both
+arenas (unless ``quant_arena`` is False) play the int8 tower
+(models/quant.py), re-quantized from the current weights each time and
+calibrated on the newest earlier iteration's replay observations (random
+playouts before there is one); the past arena puts it on both seats. An
+architecture without an int8 path (the FC net, GroupNorm) plays the float
+tower, as in the JAX package (its tri-state ``_quant_ok``); the Coach says
+so once. The metrics ``self_play/int8`` and ``arena_<kind>/int8`` record
+which tower played.
+
 Random streams: ``_np_rng`` is the JAX Coach's numpy stream, drawn in the
 same order (the fast/full coin of each move, the window permutations and
 the symmetry indices of the train batches). The JAX Coach's key stream
@@ -16,7 +26,10 @@ becomes ``generator``, a ``torch.Generator`` on the device seeded with
 ``seed + 1``. A ``draws`` hook, for tests, supplies the draws of self-play
 and arena moves instead: ``draws.selfplay(kind, sims, valids)`` returns a
 ``MoveDraws`` for one self-play move and ``draws.arena()`` a per-round
-function ``(t, sims, valids) -> MoveDraws`` for one arena.
+function ``(t, sims, valids) -> MoveDraws`` for one arena;
+``draws.calibration()`` takes the draw of one re-quantization (the JAX
+Coach draws a key for each) and returns a function that gives the random
+playouts' actions [moves, batch], called only where no replay calibrates.
 """
 
 from __future__ import annotations
@@ -107,6 +120,7 @@ class Coach:
         self._move_fns = {}
         self._arena_fns = {}
         self._dev_window = None
+        self._quant_ok = None  # tri-state: unknown / usable / unsupported
 
     # ------------------------------------------------------------- utilities
     def _save_model(self, net: NNetWrapper, iteration: int) -> None:
@@ -133,13 +147,58 @@ class Coach:
                        "model_iter": self.model_iter,
                        "gating_counter": self.gating_counter}, f)
 
-    def _get_move_fns(self, net: NNetWrapper):
-        """The fast/full/warmup runners over ``net``'s model (its weights
-        are loaded in place, so the runners follow every load)."""
-        if id(net) not in self._move_fns:
-            self._move_fns[id(net)] = make_move_fns(self.env, self._cfg,
-                                                    net.model)
-        return self._move_fns[id(net)]
+    def _get_move_fns(self, model):
+        """The fast/full/warmup runners over ``model`` (a network's model
+        or its int8 tower; weights are loaded and re-quantized in place, so
+        the runners follow every load)."""
+        if id(model) not in self._move_fns:
+            self._move_fns[id(model)] = make_move_fns(self.env, self._cfg,
+                                                      model)
+        return self._move_fns[id(model)]
+
+    def _quant_calib_obs(self, iteration: int, max_obs: int = 8192):
+        """Calibration observations for re-quantization: the newest earlier
+        iteration's replay observations, at most ``max_obs`` of them drawn
+        without replacement by the numpy stream (coach.py:210-223); None
+        before there is any replay."""
+        for it in range(iteration - 1, 0, -1):
+            data = self.store.load(it)
+            if data is not None and len(data[0]):
+                obs = data[0]
+                if len(obs) > max_obs:
+                    idx = self._np_rng.choice(len(obs), max_obs,
+                                              replace=False)
+                    obs = obs[idx]
+                return torch.from_numpy(
+                    np.asarray(obs, np.float32)).to(self.device)
+        return None
+
+    def _quantized(self, net: NNetWrapper, iteration: int):
+        """``net``'s int8 tower re-quantized from its current weights, or
+        None where its architecture has none (then ``_quant_ok`` is False
+        and the float tower plays from here on, as in the JAX Coach)."""
+        calib = self._quant_calib_obs(iteration)
+        draw = self.draws.calibration() if self.draws is not None else None
+        try:
+            model = net.quantized_inference(
+                calib_obs=calib, generator=self.generator,
+                actions=draw() if draw is not None and calib is None
+                else None)
+        except ValueError as e:
+            if self._quant_ok is None:
+                print(f"int8 tower: {e}; the float tower plays")
+            self._quant_ok = False
+            return None
+        self._quant_ok = True
+        return model
+
+    def _try_quant(self, net: NNetWrapper, iteration: int):
+        """The int8 tower for an arena (coach.py:727-742), or None."""
+        if not bool(self.args.get("quant_arena", True)) \
+                or not bool(self.args.get("quant_selfplay", False)) \
+                or self._quant_ok is False:
+            return None
+        return self._quantized(net, iteration)
 
     # ------------------------------------------------------------ main loop
     def learn(self) -> None:
@@ -195,7 +254,15 @@ class Coach:
         # Self-play uses the gated model (Coach.py:337-338).
         net = self.self_play_net if self.args.model_gating else \
             self.train_net
-        cfg, fns = self._cfg, self._get_move_fns(net)
+        model = net.model
+        if (bool(self.args.get("quant_selfplay", False)) and not self.warmup
+                and self._quant_ok is not False):
+            # Re-quantized each iteration: weights and scales follow
+            # training (coach.py:312-329).
+            quantized = self._quantized(net, iteration)
+            if quantized is not None:
+                model = quantized
+        cfg, fns = self._cfg, self._get_move_fns(model)
         carry = init_selfplay(self.env, batch, cfg.start_temp,
                               device=self.device, cfg=cfg)
 
@@ -298,6 +365,8 @@ class Coach:
         self.writer.add_scalar("self_play/moves", moves, iteration)
         self.writer.add_scalar("self_play/simulations", simulations,
                                iteration)
+        self.writer.add_scalar("self_play/int8",
+                               float(model is net.quant_model), iteration)
 
     # -------------------------------------------------------------- training
     def train(self, iteration: int) -> None:
@@ -470,13 +539,15 @@ class Coach:
         self._save_model(self.train_net, iteration)
 
     # ------------------------------------------------------------ evaluation
-    def _arena(self, kind: str):
+    def _arena(self, kind: str, quant: bool = False):
         """The arena against the past model ("past") or the RawMCTS
-        baseline ("baseline"), built once: both read the current weights of
-        the two networks, which loads replace in place."""
-        if kind not in self._arena_fns:
+        baseline ("baseline"), over the float towers or (``quant``) the int8
+        ones, built once: each reads the current weights of the two
+        networks, which loads and re-quantizations replace in place."""
+        if (kind, quant) not in self._arena_fns:
             cfg = ArenaConfig.from_args(self.args, self.env.NUM_PLAYERS,
                                         self.env.HAS_DRAW)
+            tower = "quant_model" if quant else "model"
             if kind == "baseline":
                 num_games = int(self.args.arenaCompareBaseline)
                 apply_b = raw_mcts_apply(
@@ -484,11 +555,11 @@ class Coach:
                     self.env.NUM_PLAYERS + int(self.env.HAS_DRAW))
             else:
                 num_games = int(self.args.arenaCompare)
-                apply_b = self.self_play_net.model
-            self._arena_fns[kind] = (cfg, make_arena_fn(
-                self.env, cfg, self.train_net.model, num_games,
-                apply_fn_b=apply_b, device=self.device))
-        cfg, run = self._arena_fns[kind]
+                apply_b = getattr(self.self_play_net, tower)
+            self._arena_fns[kind, quant] = make_arena_fn(
+                self.env, cfg, getattr(self.train_net, tower), num_games,
+                apply_fn_b=apply_b, device=self.device)
+        run = self._arena_fns[kind, quant]
         result = run(generator=self.generator,
                      draws=None if self.draws is None else self.draws.arena())
         step = self.model_iter
@@ -496,7 +567,7 @@ class Coach:
         for tag, value in (("rounds", result.rounds),
                            ("games", result.num_games),
                            ("wins_new", wins[0]), ("wins_other", wins[1]),
-                           ("draws", result.draws)):
+                           ("draws", result.draws), ("int8", float(quant))):
             self.writer.add_scalar(f"arena_{kind}/{tag}", value, step)
         return result
 
@@ -505,7 +576,10 @@ class Coach:
         (Coach.py:527-572)."""
         self._load_model(self.self_play_net, self.self_play_iter)
         print(f"PITTING AGAINST ITERATION {self.self_play_iter}")
-        result = self._arena("past")
+        # The int8 tower on both seats where it is available.
+        quant = self._try_quant(self.train_net, model_iter) is not None \
+            and self._try_quant(self.self_play_net, model_iter) is not None
+        result = self._arena("past", quant)
         winrate = float(winrates(result, self.args.use_draws_for_winrate)[0])
         wins = result.model_wins.numpy()
         draws = float(result.draws)
@@ -543,7 +617,8 @@ class Coach:
         """Arena against the model-free RawMCTS baseline
         (Coach.py:574-590)."""
         print("PITTING AGAINST BASELINE: RawMCTS")
-        result = self._arena("baseline")
+        quant = self._try_quant(self.train_net, iteration) is not None
+        result = self._arena("baseline", quant)
         winrate = float(winrates(result, self.args.use_draws_for_winrate)[0])
         wins = result.model_wins.numpy()
         print(f"NEW/BASELINE WINS : {wins[0]:.0f} / {wins[1]:.0f} ; "

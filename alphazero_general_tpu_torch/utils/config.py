@@ -155,8 +155,9 @@ def _default_args() -> Args:
         reuse_tree=False,
         # Leaves evaluated per network call; only 1 is ported.
         leaf_batch=1,
-        # The int8 self-play tower of the JAX package (models/quant.py) is
-        # not ported: the port's Coach raises on True (check_ported).
+        # Int8-quantized network tower for self-play and arena inference
+        # after the warmup (models/quant.py); architectures without an int8
+        # path (the FC net, GroupNorm) play the float tower.
         quant_selfplay=True,
         # When set, each Coach phase also writes a torch.profiler trace
         # under <profile_dir>/<phase>-iterNNN (utils/trace.py).
@@ -177,13 +178,6 @@ def check_ported(args: Args) -> None:
     """Raise ValueError on a knob whose value selects a path the port does
     not run yet, instead of falling back to another path."""
     unported = []
-    if bool(args.get("quant_selfplay", False)):
-        unported.append("quant_selfplay=True (the int8 self-play tower); "
-                        "set quant_selfplay=False")
-    if args.get("nnet_type", "resnet") != "resnet":
-        unported.append(f"nnet_type={args.nnet_type!r} (only 'resnet')")
-    if args.get("norm", "batchnorm") != "batchnorm":
-        unported.append(f"norm={args.norm!r} (only 'batchnorm')")
     if int(args.get("leaf_batch", 1)) != 1:
         unported.append(f"leaf_batch={args.leaf_batch} (only 1)")
     if int(args.get("mesh_batch_axis", -1)) not in (-1, 1):

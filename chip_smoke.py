@@ -31,6 +31,14 @@ Phases, each printed with its seconds; the first failure exits non-zero:
 5. self-play: 4 moves (fast, fast, fast, full) of the production config
    through ``make_move_fns``, with launch counters proving that every
    simulation went through both game-minor kernels.
+   int8: the int8 tower (models/quant.py) of the same random network,
+   calibrated on random playouts on the card: each tower conv's int32
+   output equal to the CPU's for the same int8 input, the forward within
+   ``INT8_CARD_ATOL`` of the CPU's, the accuracy bounds of
+   tests/test_quant.py:42-60 against the bf16 ResNet; both forwards'
+   device times and kernel launches, one tower conv int8 against bf16
+   beside its bound; then the 4 self-play moves again over the int8
+   tower, with the same launch checks, beside the bf16 moves' sims/s.
 6. reuse: 8 moves (the same cycle twice) of the production config with
    tree reuse (N = 403 rows) from random openings, with launch counters
    proving that every simulation went through both batch-major kernels;
@@ -47,8 +55,9 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    ``python -m alphazero_general_tpu_torch.cli.train``'s ``main``, cut as
    ``COACH_CUTS`` says (two iterations, the first a warmup one; 2048 games
    an iteration; arenas of 128 games after iteration 1 only; a gate that
-   always promotes): warmup self-play, train, both arenas and gating, then
-   the network's self-play and train. Checks
+   always promotes; the JAX default ``quant_selfplay=True``): warmup
+   self-play, train, both arenas over the int8 tower and gating, then the
+   int8 tower's self-play and train. Checks
    its checkpoints, npz samples (counts, pi rows, values), metrics (finite
    losses, autoTrainSteps' step count, arena wins and draws, the gating
    decision), and launch counters proving that every self-play and arena
@@ -58,7 +67,11 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    same step on the CPU, a checkpoint round trip, and train steps timed at
    batch 1024: fed as the Coach feeds them (row indices into the device
    window, one random symmetry a sample), with the device's busy share
-   from torch.profiler, and fed from host arrays.
+   from torch.profiler, and fed from host arrays. The int8 tower's
+   forward counter must equal what the int8 searches of the cycle need,
+   and its per-phase flags must say that it played.
+   FC and GroupNorm: a float32 forward and train step of the FC net and of
+   a GroupNorm ResNet (small widths) on the card against the CPU's.
 
 9. tafl kernels: the two game-minor kernels bit for bit against their
    plain versions at the tafl shapes, with a random 128x10 ResNet of the
@@ -75,19 +88,24 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    simulation went through both game-minor kernels and no plain version
    ran, and the sparse top-k policy records densified on the card to rows
    that sum to 1 over valid actions; then where a fast search's time
-   goes, as in phase 7.
+   goes, as in phase 7; then the int8 phase at hnefatafl's width (512
+   games, 128 x 10, 16-channel heads), without self-play moves.
 11. tafl reference: a hnefatafl search (64 games) on the card against the
    same search on the CPU through the plain versions.
 12. brandubh coach: one Coach cycle of the brandubh preset through
    ``cli.train``'s ``main``, cut as ``BRANDUBH_COACH_CUTS`` says, with the
-   checks of phase 8 (the npz rows are dense pi rows of width 588).
+   checks of phase 8 (the npz rows are dense pi rows of width 588; the
+   float tower, ``quant_selfplay=False``, keeps that Coach path driven).
 
-The last two lines are the kernels line ``{"kernels": [...]}`` and
-``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
+Before the card's line come the int8 phases' numbers
+``{"int8_tower": {...}}``; the last two lines are the kernels line
+``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``. The script
+imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -106,6 +124,7 @@ from alphazero_general_tpu_torch.mcts import search as S
 from alphazero_general_tpu_torch.mcts import tree as T
 from alphazero_general_tpu_torch.mcts.tree_t import init_tree_t
 from alphazero_general_tpu_torch.models import NNetWrapper
+from alphazero_general_tpu_torch.models import quant as Q
 from alphazero_general_tpu_torch.ops import backup as OB
 from alphazero_general_tpu_torch.ops import descend as OD
 from alphazero_general_tpu_torch.selfplay import (
@@ -183,6 +202,25 @@ PROFILED = [torch.profiler.ProfilerActivity.CUDA]
 #: launches in ``.launches``.
 COUNTED = {"descend": OD.descend_columns, "backup": OB.backup_columns_,
            "descend_rows": OD.descend_rows, "backup_rows": OB.backup_rows_}
+
+
+#: The int8 tower against the bf16 ResNet on the card, the accuracy bounds
+#: of tests/test_quant.py:42-60: mean KL(bf16 || int8) of the policies,
+#: max |dv| of the value probabilities, argmax agreement of the policies.
+INT8_KL, INT8_DV, INT8_AGREE = 5e-3, 0.05, 0.97
+#: The int8 forward on the card against the same module on the CPU, on the
+#: first ``INT8_CHECK_GAMES`` games of the batch: the int8 codes come from
+#: float32 sums taken in another order (the stem's convolution, the
+#: affines), so a code at a rounding boundary may move by one step, which
+#: moves a log-probability by far less than this.
+INT8_CARD_ATOL = 0.05
+INT8_CHECK_GAMES = 64
+#: Forwards timed per measurement of the int8 phase.
+INT8_REPS = 20
+#: Dense tensor-core peaks of one H100 SXM (NVIDIA data sheet), for the
+#: tower conv's bound.
+INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 
 
 class SmokeFailure(RuntimeError):
@@ -1028,7 +1066,9 @@ def breakdown_phase(env, eval_fn, spec, batch: int, sims: int, device):
 #: lockstep batch of games a self-play iteration (preset: 8192 games),
 #: arenas of 128 games (preset: 512) after iteration 1 only (preset: both
 #: arenas every iteration; the cut leaves room for the brandubh Coach in
-#: the script's time), and the float tower (the int8 one is not ported).
+#: the script's time), at the JAX default ``quant_selfplay=True``: both
+#: arenas play the int8 tower calibrated on random playouts, iteration 2's
+#: self-play the int8 tower calibrated on iteration 1's replay.
 #: The gate promotes whatever wins at least 0 (preset: 0.52), so that
 #: iteration 2 always plays the trained network: a model trained
 #: on one warmup iteration may lose the past arena, and self-play would
@@ -1036,7 +1076,7 @@ def breakdown_phase(env, eval_fn, spec, batch: int, sims: int, device):
 COACH_CUTS = dict(numIters=2, numWarmupIters=1, gamesPerIteration=2048,
                   arenaCompare=128, arenaCompareBaseline=128,
                   baselineCompareFreq=2, pastCompareFreq=2,
-                  quant_selfplay=False, min_next_model_winrate=0.0)
+                  min_next_model_winrate=0.0)
 #: A float32 train step on the card against the same step on the CPU:
 #: params and batch statistics agree within these (cuDNN's and the CPU's
 #: float32 sums differ in order; TF32 is off).
@@ -1125,6 +1165,7 @@ def coach_phase(device, root: str, sets: dict,
         torch.cuda.reset_peak_memory_stats(device)
     sync(device)
     reset_counts()
+    Q.QuantResNet.forwards = 0
     with _PlainCounter(OD, "descend_plain") as pd, \
             _PlainCounter(OB, "backup_plain_") as pb:
         t0 = time.perf_counter()
@@ -1132,6 +1173,7 @@ def coach_phase(device, root: str, sets: dict,
         sync(device)
         wall = time.perf_counter() - t0
     launches = read_counts()
+    int8_forwards = Q.QuantResNet.forwards
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
 
     ckpt = os.path.join(dirs["checkpoint"], "smoke")
@@ -1158,6 +1200,11 @@ def coach_phase(device, root: str, sets: dict,
               ("past", "arenaCompare", bool(args.compareWithPast),
                int(args.pastCompareFreq)))
     prev_gate = 0
+    # The int8 tower plays self-play after the warmup and every arena under
+    # quant_selfplay (the ResNet has an int8 path): one forward a
+    # simulation in self-play, one a seat and simulation in an arena.
+    quant = bool(args.quant_selfplay)
+    expect_forwards = 0
     # The gate the cut replaces: the preset's winrate, whose "keep" branch
     # the CPU parity tests hold to the JAX Coach.
     preset_gate = float(preset_args(env_name).min_next_model_winrate)
@@ -1190,6 +1237,13 @@ def coach_phase(device, root: str, sets: dict,
                    loss=(m["loss/policy"][it], m["loss/value"][it]))
         searches += int(rec["moves"])
         simulations += int(rec["self_play_sims"])
+        warmup = it <= int(args.numWarmupIters) or prev_gate == 0
+        rec["int8"] = {"self_play": m["self_play/int8"][it]}
+        check(rec["int8"]["self_play"] == float(quant and not warmup),
+              f"coach: iteration {it} self-play int8 flag "
+              f"{rec['int8']['self_play']}, quant_selfplay={quant}")
+        expect_forwards += int(rec["int8"]["self_play"]) * int(
+            rec["self_play_sims"])
         want_gate = prev_gate
         for kind, knob, on, freq in arenas:
             ran = on and int(args[knob]) > 0 and (it - 1) % freq == 0
@@ -1210,6 +1264,12 @@ def coach_phase(device, root: str, sets: dict,
             searches += int(a["rounds"])
             simulations += int(a["rounds"]) * sims
             rec[kind] = a
+            rec["int8"][kind] = m[f"arena_{kind}/int8"][it]
+            check(rec["int8"][kind] == float(quant),
+                  f"coach: the {kind} arena of iteration {it} int8 flag "
+                  f"{rec['int8'][kind]}, quant_selfplay={quant}")
+            expect_forwards += int(rec["int8"][kind]) * int(a["rounds"]) \
+                * sims * (2 if kind == "past" else 1)
             if kind == "past":
                 # Gating under the preset's rule ("reference", no cap).
                 want_gate = it if wr >= float(
@@ -1233,8 +1293,11 @@ def coach_phase(device, root: str, sets: dict,
     check(launches == expect,
           f"coach: kernel launches {launches} != expected {expect} "
           f"({searches} searches, {simulations} simulations)")
+    check(int8_forwards == expect_forwards,
+          f"coach: {int8_forwards} forwards of the int8 tower, the int8 "
+          f"searches need {expect_forwards}")
     out.update(searches=searches, simulations=simulations, ckpt=ckpt,
-               store=store)
+               store=store, int8_forwards=int8_forwards)
     return out
 
 
@@ -1317,6 +1380,210 @@ def train_check_phase(device, model: dict, batch_rows, reps=TRAIN_TIMED_STEPS,
     return out
 
 
+def launches_per_call(fn, device, reps: int = 3) -> float:
+    """Device kernels that one call of ``fn`` launches, from a
+    torch.profiler trace of ``reps`` calls (a trace that lost records
+    undercounts); on the CPU, 0."""
+    if torch.device(device).type != "cuda":
+        return 0.0
+    fn()
+    torch.cuda.synchronize(device)
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+    return sum(e.count for e in _device_kernels(prof)) / reps
+
+
+def int8_conv_bound(rows: int, channels: int) -> dict:
+    """Least time of one 3x3 tower conv of ``rows`` NHWC rows: operations
+    2·rows·9C·C at the int8 (and bf16) tensor-core peak; bytes of the int8
+    route with each input read once and the int32 output written once,
+    without and with the patch matrix [rows, 9C] written and read again;
+    the bf16 conv's bytes. Returns ms and what bounds each."""
+    k = 9 * channels
+    ops = 2 * rows * k * channels
+    int8_bytes = rows * channels + k * channels + rows * channels * 4
+    patch_bytes = int8_bytes + 2 * rows * k
+    bf16_bytes = 2 * (rows * channels + k * channels + rows * channels)
+
+    def bound(ops_per_s, nbytes):
+        t_ops = ops / ops_per_s * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return (max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    return dict(ops=ops, int8=bound(INT8_OPS_PER_S, int8_bytes),
+                int8_patches=bound(INT8_OPS_PER_S, patch_bytes),
+                bf16=bound(BF16_OPS_PER_S, bf16_bytes),
+                bytes=(int8_bytes, patch_bytes, bf16_bytes))
+
+
+def int8_phase(env, net, batch: int, device, gate_agreement: bool = True
+               ) -> dict:
+    """The int8 tower of ``net`` (random weights) at ``batch`` games:
+    quantized from the calibration playouts on the device (seed SEED);
+    each tower conv's int32 output on the device equal to the CPU's for
+    the same int8 input (the first INT8_CHECK_GAMES games); the forward
+    within INT8_CARD_ATOL of the same module's on the CPU; the accuracy
+    bounds against the bf16 ResNet over the batch (argmax agreement gated
+    with ``gate_agreement``); then device times (CUDA events) and kernel
+    launches of both forwards, and one tower conv, int8 and bf16, beside
+    its bound."""
+    gen = torch.Generator(device).manual_seed(SEED)
+    t0 = time.perf_counter()
+    calib = Q.calibration_observations(env, generator=gen, device=device)
+    q = net.quantized_inference(calib_obs=calib)
+    sync(device)
+    quantize_s = time.perf_counter() - t0
+    obs = env.observation(random_openings(
+        env, batch, 12, torch.Generator(device).manual_seed(SEED + 9),
+        device))
+    cpu_q = copy.deepcopy(q).to("cpu")
+    n = min(INT8_CHECK_GAMES, batch)
+    with torch.inference_mode():
+        operands = q.conv_operands(obs)
+        for k, (a, w) in enumerate(operands):
+            got = Q.conv3x3_int8(a, w, q.channels)[:n].cpu()
+            want = Q.conv3x3_int8(a[:n].cpu(), w.cpu(), q.channels)
+            check(torch.equal(got, want),
+                  f"int8 tower conv {k}: the card's int32 output differs "
+                  "from the CPU's on the same int8 input")
+        lq, vq = q(obs)
+        lc, vc = cpu_q(obs[:n].cpu())
+        card_err = max((lq[:n].cpu() - lc).abs().max().item(),
+                       (vq[:n].cpu() - vc).abs().max().item())
+        check(card_err <= INT8_CARD_ATOL,
+              f"int8 forward on the card vs the CPU: {card_err:.3g} > "
+              f"{INT8_CARD_ATOL}")
+        check(bool(torch.isfinite(lq).all() and torch.isfinite(vq).all()),
+              "int8 forward: non-finite outputs")
+        lf, vf = net.model(obs)
+        pf = torch.exp(lf)
+        kl = float((pf * (lf - lq)).sum(-1).mean())
+        dv = float((torch.exp(vq) - torch.exp(vf)).abs().max())
+        agree = float((lq.argmax(-1) == lf.argmax(-1)).float().mean())
+        top2 = lf.topk(2, dim=-1).values
+        gap = float((top2[:, 0] - top2[:, 1]).median())
+        check(kl < INT8_KL and dv < INT8_DV,
+              f"int8 vs bf16: mean KL {kl:.3g} (bound {INT8_KL}), max |dv| "
+              f"{dv:.3g} (bound {INT8_DV})")
+        check(agree > INT8_AGREE or not gate_agreement,
+              f"int8 vs bf16: argmax agreement {agree:.4f} <= {INT8_AGREE}")
+
+        h, w_ = env.OBS_SHAPE[1:]
+        rows, c = batch * h * w_, q.channels
+        a, wt = operands[0]
+        # The patch matrix built from byte-wide slices, and from int32
+        # words of 4 channels (as conv3x3_int8 builds it): the same bytes.
+        padded = {t: torch.nn.functional.pad(a.view(t), (0, 0, 1, 1, 1, 1))
+                  for t in (torch.int8, torch.int32)}
+
+        def patches_of(t):
+            return torch.cat([padded[t][:, i:i + h, j:j + w_]
+                              for i in range(3) for j in range(3)], dim=-1)
+
+        patches = patches_of(torch.int8).reshape(rows, 9 * c)
+        check(torch.equal(patches, patches_of(torch.int32).view(
+            torch.int8).reshape(rows, 9 * c)), "int8 patch matrices differ")
+        x16 = torch.randn((batch, c, h, w_), dtype=torch.bfloat16,
+                          generator=torch.Generator(device).manual_seed(1),
+                          device=device)
+        conv16 = net.model.blocks[0].conv1
+        out = dict(
+            batch=batch, rows=rows, channels=c, quantize_s=quantize_s,
+            card_err=card_err, kl=kl, dv=dv, agree=agree, top2_gap=gap,
+            agreement_gated=gate_agreement,
+            int8_ms=time_ms(lambda: q(obs), INT8_REPS, device),
+            bf16_ms=time_ms(lambda: net.model(obs), INT8_REPS, device),
+            int8_launches=launches_per_call(lambda: q(obs), device),
+            bf16_launches=launches_per_call(lambda: net.model(obs), device),
+            conv_int8_ms=time_ms(lambda: Q.conv3x3_int8(a, wt, c),
+                                 INT8_REPS, device),
+            int_mm_ms=time_ms(lambda: torch._int_mm(patches, wt.t()),
+                              INT8_REPS, device),
+            patches_bytes_ms=time_ms(lambda: patches_of(torch.int8),
+                                     INT8_REPS, device),
+            patches_words_ms=time_ms(lambda: patches_of(torch.int32),
+                                     INT8_REPS, device),
+            conv_bf16_ms=time_ms(lambda: conv16(x16), INT8_REPS, device),
+            bound=int8_conv_bound(rows, c))
+    return out
+
+
+def log_int8(name: str, r: dict, smi: str) -> None:
+    b = r["bound"]
+    log(f"  {name} int8 tower at B={r['batch']} ({r['rows']:,} rows, "
+        f"C={r['channels']}): quantized in {r['quantize_s']:.2f} s; every "
+        f"tower conv's int32 output equal to the CPU's; forward within "
+        f"{r['card_err']:.3g} of the CPU's; against bf16: mean KL "
+        f"{r['kl']:.3g}, max |dv| {r['dv']:.3g}, argmax agreement "
+        f"{r['agree']:.4f} (bf16 top-two logit gap, median "
+        f"{r['top2_gap']:.4g}; gated: {r['agreement_gated']})")
+    log(f"  {name} forward: int8 {r['int8_ms']:.3f} ms, bf16 "
+        f"{r['bf16_ms']:.3f} ms of device time (CUDA events); kernel "
+        f"launches a forward: int8 {r['int8_launches']:.0f}, bf16 "
+        f"{r['bf16_launches']:.0f}; card: {smi}")
+    log(f"  {name} one 3x3 tower conv: int8 {r['conv_int8_ms']:.4f} ms "
+        f"(pad, patches, torch._int_mm; the product alone "
+        f"{r['int_mm_ms']:.4f} ms), bf16 {r['conv_bf16_ms']:.4f} ms; "
+        f"{b['ops'] / 1e9:.1f} G operations; bound int8 "
+        f"{b['int8'][0]:.4f} ms ({b['int8'][1]}, {b['bytes'][0]:,} bytes), "
+        f"with the patch matrix {b['int8_patches'][0]:.4f} ms "
+        f"({b['bytes'][1]:,} bytes), bf16 {b['bf16'][0]:.4f} ms "
+        f"({b['bf16'][1]})")
+    log(f"  {name} the patch matrix from the padded input: "
+        f"{r['patches_words_ms']:.4f} ms copied as int32 words, "
+        f"{r['patches_bytes_ms']:.4f} ms as bytes")
+
+
+#: The FC net and a GroupNorm tower on the card at small widths.
+OTHER_NETS = {
+    "fc": dict(nnet_type="fc", input_fc_layers=[256, 256],
+               value_dense_layers=[64], policy_dense_layers=[64]),
+    "groupnorm": dict(norm="groupnorm", num_channels=32, depth=2,
+                      value_head_channels=16, policy_head_channels=16,
+                      value_dense_layers=[64], policy_dense_layers=[64]),
+}
+
+
+def other_nets_phase(device, batch: int = 64) -> dict:
+    """A float32 forward and train step of the FC net and of a GroupNorm
+    ResNet on ``device`` against the same on the CPU, from the same
+    weights and batch: outputs and trained parameters within TRAIN_RTOL /
+    TRAIN_ATOL. Returns the max errors."""
+    env = get_env("connect4")
+    gen = torch.Generator("cpu").manual_seed(SEED + 10)
+    obs = env.observation(random_openings(env, batch, 12, gen, "cpu"))
+    rng = np.random.default_rng(SEED + 10)
+    pi = rng.dirichlet(np.ones(env.ACTION_SIZE), batch).astype(np.float32)
+    value = np.eye(3, dtype=np.float32)[rng.integers(0, 3, batch)]
+    errs = {}
+    for kind, knobs in OTHER_NETS.items():
+        args = get_args(seed=SEED, compute_dtype="float32", **knobs)
+        nets = {d: NNetWrapper(env, args, device=d) for d in (device, "cpu")}
+        nets[device].model.load_state_dict(nets["cpu"].model.state_dict())
+        outs = {d: net.process(obs.to(d)) for d, net in nets.items()}
+        err = 0.0
+        for a, b in zip(outs[device], outs["cpu"]):
+            a = a.cpu()
+            bad = (a - b).abs() > TRAIN_ATOL + TRAIN_RTOL * b.abs()
+            check(not bool(bad.any()), f"{kind} forward on {device} != cpu")
+            err = max(err, (a - b).abs().max().item())
+        for net in nets.values():
+            net.train([(obs.numpy(), pi, value)], 1)
+        want = nets["cpu"].model.state_dict()
+        for k, x in nets[device].model.state_dict().items():
+            x = x.cpu()
+            bad = (x - want[k]).abs() > TRAIN_ATOL + TRAIN_RTOL * \
+                want[k].abs()
+            check(not bool(bad.any()),
+                  f"{kind} train step on {device} != cpu at {k}")
+            err = max(err, (x - want[k]).abs().max().item())
+        errs[kind] = err
+    return errs
+
+
 def kernel_bound(kind: str, t: dict, batch: int) -> tuple:
     """A kernel's bound (ms, "bytes" or "operations") from the data of the
     snapshot it was timed on (see PERF.md); ``kind`` is "descend" or
@@ -1375,12 +1642,14 @@ def log_coach(co: dict, smi: str) -> None:
     """The Coach phase's numbers, per iteration."""
     log(f"  {co['env']} coach cycle through cli.train.main: "
         f"{co['wall']:.1f} s; cuts {co['cuts']}; {co['searches']} searches, "
-        f"{co['simulations']} simulations; launches {co['launches']}; peak "
+        f"{co['simulations']} simulations; launches {co['launches']}; "
+        f"int8 tower forwards {co['int8_forwards']}; peak "
         f"memory {co['peak_bytes'] / 2**30:.2f} GiB; card: {smi}")
     for it, r in co["iters"].items():
         t = r["times"]
         log(f"  iteration {it}: " + ", ".join(
             f"time/{k} {v:.2f} s" for k, v in sorted(t.items())))
+        log(f"    int8 tower (1 = played): {r['int8']}")
         log(f"    self-play: {r['moves']:.0f} moves, {r['games']:.0f} games,"
             f" {r['samples']:.0f} samples, "
             f"{co['games_per_batch'] * r['self_play_sims'] / t['self_play']:,.0f}"
@@ -1412,8 +1681,9 @@ def log_timing(name: str, t: dict) -> None:
         f"{bound[0]:.6f} ms ({bound[1]})")
 
 
-def connect4_phases(device, smi: str) -> list:
-    """Phases 3-8 (connect4); returns their kernel records."""
+def connect4_phases(device, smi: str) -> tuple:
+    """Phases 3-8 (connect4) with the int8 and FC / GroupNorm phases;
+    returns their kernel records and the int8 phase's numbers."""
     env = get_env("connect4")
     args = get_args(seed=SEED, numMCTSSims=SIMS_FULL, numFastSims=SIMS_FAST,
                     **MODEL)
@@ -1466,6 +1736,18 @@ def connect4_phases(device, smi: str) -> list:
         f"{len(sp['moves'])} moves; launches {sp['launches']}; peak memory "
         f"{sp['peak_bytes'] / 2**30:.2f} GiB; card: {smi}")
     log(f"phase self-play: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    i8 = int8_phase(env, net, GAMES, device)
+    log_int8("connect4", i8, smi)
+    qp = selfplay_phase(env, net.quant_model, cfg, GAMES, CYCLE, device)
+    i8.update(sims_per_s=qp["sims_per_s"], bf16_sims_per_s=sp["sims_per_s"],
+              selfplay_launches=qp["launches"])
+    log(f"  int8 self-play: {qp['sims_per_s']:,.0f} sims/s over "
+        f"{len(qp['moves'])} moves (bf16, same run: "
+        f"{sp['sims_per_s']:,.0f}); launches {qp['launches']}; peak memory "
+        f"{qp['peak_bytes'] / 2**30:.2f} GiB; card: {smi}")
+    log(f"phase int8: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     reuse_cfg = SelfPlayConfig.from_args(
@@ -1535,8 +1817,15 @@ def connect4_phases(device, smi: str) -> list:
         f"fed from host arrays: {h['steps_per_s']:.2f} steps/s = "
         f"{h['samples_per_s']:,.0f} samples/s; card: {smi}")
     log(f"phase coach: {time.perf_counter() - t0:.1f} s")
-    return [kernel_record(k, k, timing[k], launches[k], errs[k])
-            for k in KERNELS]
+
+    t0 = time.perf_counter()
+    other = other_nets_phase(device)
+    log(f"  float32 forward and train step on {device} == cpu within rtol "
+        f"{TRAIN_RTOL}, atol {TRAIN_ATOL}: " + ", ".join(
+            f"{k} (max error {e:.3g})" for k, e in other.items()))
+    log(f"phase FC and GroupNorm: {time.perf_counter() - t0:.1f} s")
+    return ([kernel_record(k, k, timing[k], launches[k], errs[k])
+             for k in KERNELS], i8)
 
 
 #: The brandubh Coach phase: the brandubh preset (envs/presets.py: 1024
@@ -1547,7 +1836,8 @@ def connect4_phases(device, smi: str) -> list:
 #: baseline arena (preset: 128 games each iteration), one past arena of 128
 #: games, after iteration 1 (preset: one each iteration), a gate of 0
 #: (preset: 0.52) so that iteration 2 plays the trained network, and the
-#: float tower.
+#: float tower (``quant_selfplay=False``: the connect4 Coach drives the
+#: int8 one).
 BRANDUBH_COACH_CUTS = dict(numIters=2, numWarmupIters=1,
                            gamesPerIteration=1024, compareWithBaseline=False,
                            pastCompareFreq=2, arenaCompare=128,
@@ -1634,8 +1924,9 @@ def prior_layout_phase(device, batch: int, nodes: int, actions: int,
     return out
 
 
-def tafl_phases(device, smi: str) -> list:
-    """Phases 9-12 (tafl); returns their kernel records."""
+def tafl_phases(device, smi: str) -> tuple:
+    """Phases 9-12 (tafl) with the hnefatafl int8 phase; returns their
+    kernel records and the int8 phase's numbers."""
     nets = {}
     for name in ("hnefatafl", "brandubh"):
         nets[name] = NNetWrapper(get_env(name), preset_args(name, seed=SEED),
@@ -1666,6 +1957,16 @@ def tafl_phases(device, smi: str) -> list:
     log(f"phase hnefatafl self-play: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    # Argmax agreement is printed, not gated, here: the random hnefatafl
+    # net's policy is near uniform over 2420 actions (its top-two logit gap
+    # is far below the int8 tower's logit error), so the top action is a
+    # near tie that either tower may break; KL and |dv| are gated.
+    i8 = int8_phase(env, nets["hnefatafl"], batch, device,
+                    gate_agreement=False)
+    log_int8("hnefatafl", i8, smi)
+    log(f"phase hnefatafl int8: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     reference_phase(env, device, **TAFL_REFERENCE)
     log(f"phase tafl reference: {time.perf_counter() - t0:.1f} s")
 
@@ -1675,12 +1976,13 @@ def tafl_phases(device, smi: str) -> list:
         co = coach_phase(device, root, BRANDUBH_COACH_CUTS, "brandubh")
         log_coach(co, smi)
     log(f"phase brandubh coach: {time.perf_counter() - t0:.1f} s")
-    return [kernel_record(f"{k}@{name}", k, timing[key][k],
-                          launches[k], errs[k])
-            for name, key, launches in (
-                ("hnefatafl", ("hnefatafl", cfg.sims_full), sp["launches"]),
-                ("brandubh", ("brandubh", "arena"), co["launches"]))
-            for k in ("descend", "backup")]
+    return ([kernel_record(f"{k}@{name}", k, timing[key][k],
+                           launches[k], errs[k])
+             for name, key, launches in (
+                 ("hnefatafl", ("hnefatafl", cfg.sims_full),
+                  sp["launches"]),
+                 ("brandubh", ("brandubh", "arena"), co["launches"]))
+             for k in ("descend", "backup")], i8)
 
 
 def main() -> int:
@@ -1696,11 +1998,14 @@ def main() -> int:
     log(f"  a one-element fill: {launch_floor_ms(device):.4f} ms of device "
         "time per launch (the least a kernel takes)")
 
-    records = connect4_phases(device, smi) + tafl_phases(device, smi)
+    records, c4_int8 = connect4_phases(device, smi)
+    tafl_records, tafl_int8 = tafl_phases(device, smi)
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
+    log(json.dumps({"int8_tower": {"connect4": c4_int8,
+                                   "hnefatafl": tafl_int8, "card": smi}}))
     log(smi)
-    log(json.dumps({"kernels": records}))
+    log(json.dumps({"kernels": records + tafl_records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": device_count}}))
     return 0

@@ -70,15 +70,61 @@ def move_draws(r_search, r_action, valids, sims, root_noise):
                      search=SearchDraws(tie=t(tie), gammas=t(gammas)))
 
 
+_CALIBRATION_FNS = {}
+
+
+def jax_calibration(env_name, rng, batch=256, moves=24):
+    """The JAX package's cold-start calibration playouts
+    (``calibration_observations``, models/quant.py:255) with their
+    actions: (obs [moves * batch, C, H, W], actions [moves, batch]) as
+    numpy, from the same key and the same ops."""
+    from alphazero_general_tpu.envs import get_env as j_get_env
+
+    env = j_get_env(env_name)
+    states = jax.vmap(lambda _: env.init())(jnp.arange(batch))
+
+    def body(st, r):
+        obs = jax.vmap(env.observation)(st)
+        valids = jax.vmap(env.valid_moves)(st)
+        logits = jnp.where(valids, 0.0, -jnp.inf)
+        act = jax.random.categorical(r, logits, axis=-1).astype(jnp.int32)
+        nxt = jax.vmap(env.step)(st, act)
+        done = jnp.any(jax.vmap(env.win_state)(nxt) > 0, axis=-1)
+        fresh = jax.vmap(lambda _: env.init())(jnp.arange(batch))
+
+        def sel(n, f):
+            return jnp.where(done.reshape((batch,) + (1,) * (n.ndim - 1)),
+                             f, n)
+
+        return jax.tree_util.tree_map(sel, nxt, fresh), (obs, act)
+
+    key = (env_name, batch, moves)
+    if key not in _CALIBRATION_FNS:
+        _CALIBRATION_FNS[key] = jax.jit(lambda s, r: jax.lax.scan(
+            body, s, jax.random.split(r, moves)))
+    _, (obs, act) = _CALIBRATION_FNS[key](states, rng)
+    return (np.asarray(obs).reshape((-1,) + obs.shape[2:]),
+            np.array(act))
+
+
 class JaxDraws:
     """The JAX Coach's key stream (train/coach.py:147, ``_next_rng``): one
     key per self-play move (split into fast, search, action keys,
-    selfplay.py:184) and one per arena (split per round into search and
-    action keys, arena.py:269)."""
+    selfplay.py:184), one per arena (split per round into search and
+    action keys, arena.py:269) and one per int8 re-quantization (the
+    calibration playouts' key, used where no replay calibrates)."""
 
-    def __init__(self, seed: int, root_noise: bool = True):
+    def __init__(self, seed: int, root_noise: bool = True,
+                 env_name: str = "connect4"):
         self.rng = jax.random.PRNGKey(seed + 1)
         self.root_noise = root_noise
+        self.env_name = env_name
+        self.calibrations = 0
+
+    def calibration(self):
+        key = self.next_key()
+        self.calibrations += 1
+        return lambda: jax_calibration(self.env_name, key)[1]
 
     def next_key(self):
         self.rng, sub = jax.random.split(self.rng)

@@ -1,8 +1,9 @@
 """The port's training entry point and its config: ``cli.train.main``
 runs a Coach cycle on the CPU from the connect4 preset cut by ``--set``
-overrides, or from an args file the JAX package wrote; the args schema and
-its JSON round trip match the JAX package's; and every knob that names a
-path the port does not run raises instead of falling back."""
+overrides, or from an args file the JAX package wrote, at the default
+``quant_selfplay=True`` and with the FC net and GroupNorm; the args schema
+and its JSON round trip match the JAX package's; and every knob that names
+a path the port does not run raises instead of falling back."""
 
 import json
 
@@ -78,9 +79,8 @@ def test_args_files_round_trip_between_packages(tmp_path):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(quant_selfplay=True), dict(nnet_type="fc"),
-    dict(norm="groupnorm"), dict(leaf_batch=2), dict(mesh_batch_axis=4),
-], ids=["quant_selfplay", "fc", "groupnorm", "leaf_batch", "multi_device"])
+    dict(leaf_batch=2), dict(mesh_batch_axis=4),
+], ids=["leaf_batch", "multi_device"])
 def test_unported_knobs_raise(knob, tmp_path):
     args = C.get_args(**dict(TINY, **knob), **_dirs(str(tmp_path), "x"))
     env = get_env("connect4")
@@ -91,3 +91,36 @@ def test_unported_knobs_raise(knob, tmp_path):
         argv += ["--set", f"{k}={v!r}"]
     with pytest.raises(ValueError, match="not ported"):
         cli_train.main(argv)
+
+
+@pytest.mark.parametrize("knob,int8", [
+    (dict(quant_selfplay=True), True),
+    (dict(quant_selfplay=True, nnet_type="fc", input_fc_layers=[16]), False),
+    (dict(quant_selfplay=True, norm="groupnorm"), False),
+], ids=["int8_default", "fc", "groupnorm"])
+def test_cli_train_runs_every_architecture(knob, int8, tmp_path):
+    """A cut cycle through ``cli.train.main`` (2 iterations, the first a
+    warmup; 4 games, 3 / 2 simulations; an 8-channel one-block net; both
+    arenas after iteration 1 only) under the JAX default
+    ``quant_selfplay=True``: the ResNet plays the int8 tower in iteration
+    2's self-play and in both arenas; the FC net and GroupNorm, which have
+    no int8 path, play the float tower."""
+    cut = {k: v for k, v in TINY.items() if k not in ("seed",
+                                                      "quant_selfplay")}
+    cut.update(numMCTSSims=3, numFastSims=2, numWarmupSims=2,
+               baselineCompareFreq=2, pastCompareFreq=2, **knob)
+    argv = ["connect4", "--device", "cpu"]
+    for k, v in {**cut, **_dirs(str(tmp_path), "cli")}.items():
+        argv += ["--set", f"{k}={v!r}"]
+    assert cli_train.main(argv) == 0
+    m = {}
+    for line in open(tmp_path / "runs" / "cli" / "metrics.jsonl"):
+        r = json.loads(line)
+        m[(r["tag"], r["step"])] = r["value"]
+    assert (m[("self_play/int8", 1)], m[("self_play/int8", 2)]) == (
+        0.0, float(int8))
+    for kind in ("baseline", "past"):
+        assert m[(f"arena_{kind}/int8", 1)] == float(int8)
+        assert (f"arena_{kind}/games", 2) not in m
+    assert (tmp_path / "checkpoint" / "cli" / "iteration-0002.ckpt") \
+        .is_file()

@@ -12,7 +12,11 @@ that depends on thread timing, so the numpy stream's state after each
 training is taken from the JAX run.
 
 Held equal: every stored sample (obs, pi, value) of both iterations, the
-arena winrates, the gating decisions and ``self_play_iter``. Within
+arena winrates, the gating decisions and ``self_play_iter``. The same
+Coach at the JAX default ``quant_selfplay=True`` plays the int8 tower in
+both arenas of both iterations (calibrated on random playouts, then on
+iteration 1's replay) and in iteration 2's self-play, and is held to the
+same equalities. Within
 tolerance: the losses (rtol 1e-5) and the trained weights and batch
 statistics (atol 1e-5), where float32 sums in another order compound over
 the train steps. Iteration 1 is a warmup iteration; the trained model is
@@ -86,11 +90,64 @@ class _RecordingJCoach(JCoach):
         super().train(iteration)
         self.np_states.append(copy.deepcopy(self._np_rng.bit_generator.state))
 
+    def _quant_calib_obs(self, iteration, max_obs=8192):
+        out = super()._quant_calib_obs(iteration, max_obs)
+        self.calib_seen.append(None if out is None else np.asarray(out))
+        return out
+
 
 class _ReplayingCoach(Coach):
     def train(self, iteration):
         super().train(iteration)
         self._np_rng.bit_generator.state = self.np_states.pop(0)
+
+    def _quant_calib_obs(self, iteration, max_obs=8192):
+        out = super()._quant_calib_obs(iteration, max_obs)
+        self.calib_seen.append(None if out is None else out.cpu().numpy())
+        return out
+
+
+def _run_both(root, knobs, tag):
+    """The JAX Coach and the port's (JAX's initial weights and draws) of
+    ``knobs``, each run to its end in ``root``."""
+    j_args = JC.get_args(mesh_batch_axis=1, **knobs, **_dirs(root, "j" + tag))
+    j_env = j_get_env("connect4")
+    jc = _RecordingJCoach(j_env, JWrapper(j_env, j_args), j_args)
+    jc.np_states, jc.calib_seen = [], []
+    jc.learn()
+
+    args = C.get_args(**knobs, **_dirs(root, "t" + tag))
+    env = get_env("connect4")
+    net = NNetWrapper(env, args, device="cpu")
+    net.load_jax_variables(jax.device_get(
+        JWrapper(j_env, j_args).state.variables))
+    tc = _ReplayingCoach(env, net, args, draws=JaxDraws(knobs["seed"]))
+    tc.np_states, tc.calib_seen = list(jc.np_states), []
+    tc.learn()
+    return jc, tc
+
+
+def _assert_same_run(root, jc, tc, tag, iters):
+    """Every sample, the gating state and every JAX metric equal (losses
+    within LOSS_RTOL)."""
+    for it in range(1, iters + 1):
+        want, got = jc.store.load(it), tc.store.load(it)
+        assert len(got[0]) > 0
+        for x, y, name in zip(got, want, ("obs", "pi", "value")):
+            assert x.dtype == y.dtype, name
+            np.testing.assert_array_equal(x, y, err_msg=f"iter {it} {name}")
+    assert tc.self_play_iter == jc.self_play_iter
+    assert tc.gating_counter == jc.gating_counter
+    jm, tm = _metrics(root, "j" + tag), _metrics(root, "t" + tag)
+    for key, want in jm.items():
+        if key[0].startswith(("time/", "loss/sample_time")):
+            continue
+        if key[0] in ("loss/policy", "loss/value", "loss/total"):
+            np.testing.assert_allclose(tm[key], want, rtol=LOSS_RTOL,
+                                       err_msg=str(key))
+        else:
+            assert tm[key] == want, key
+    return tm
 
 
 @pytest.fixture(scope="module")
@@ -161,6 +218,66 @@ def test_two_iteration_coach_matches_jax(runs):
             assert tm[(f"arena_{kind}/wins_new", it)] + \
                 tm[(f"arena_{kind}/wins_other", it)] + \
                 tm[(f"arena_{kind}/draws", it)] == B
+
+@pytest.fixture(scope="module")
+def quant_runs(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("coach_int8"))
+    from alphazero_general_tpu_torch.models.quant import QuantResNet
+
+    before = QuantResNet.forwards
+    jc, tc = _run_both(root, dict(TINY, quant_selfplay=True), "q")
+    return root, jc, tc, QuantResNet.forwards - before
+
+
+def test_int8_coach_matches_jax(quant_runs):
+    """The 2-iteration Coach at ``quant_selfplay=True``: the same samples
+    (iteration 2 from int8 self-play), arena results and gating as the JAX
+    Coach; both packages quantized for both arenas of both iterations and
+    for iteration 2's self-play, calibrated on the same rows."""
+    root, jc, tc, forwards = quant_runs
+    tm = _assert_same_run(root, jc, tc, "q", 2)
+    assert jc._quant_ok is True and tc._quant_ok is True
+    assert "fns_quant" in jc._chunk_fns
+    assert "q" in jc._arena_fn and "q" in jc._baseline_fn
+    assert [tm[("self_play/int8", it)] for it in (1, 2)] == [0.0, 1.0]
+    for it in (1, 2):
+        for kind in ("baseline", "past"):
+            assert tm[(f"arena_{kind}/int8", it)] == 1.0
+    # One forward per simulation in self-play; per arena round and
+    # simulation, one for the baseline arena and two (both seats) for the
+    # past arena.
+    sims = int(TINY["numMCTSSims"])
+    assert forwards == tm[("self_play/simulations", 2)] + sum(
+        tm[(f"arena_{kind}/rounds", it)] * sims * seats
+        for it in (1, 2) for kind, seats in (("baseline", 1), ("past", 2)))
+    # Calibrations: the three of iteration 1's arenas on random playouts,
+    # then iteration 2's self-play and arenas on iteration 1's replay.
+    assert len(tc.calib_seen) == len(jc.calib_seen) == 7
+    assert tc.draws.calibrations == 7
+    for got, want in zip(tc.calib_seen, jc.calib_seen):
+        if want is None:
+            assert got is None
+        else:
+            np.testing.assert_array_equal(got, want)
+    # A window larger than max_obs: the same rows drawn from the same
+    # numpy state.
+    for c in (jc, tc):
+        c._np_rng = np.random.default_rng(11)
+    np.testing.assert_array_equal(
+        tc._quant_calib_obs(3, max_obs=16).cpu().numpy(),
+        np.asarray(jc._quant_calib_obs(3, max_obs=16)))
+
+
+def test_groupnorm_coach_plays_the_float_tower(tmp_path):
+    """GroupNorm has no int8 path: at ``quant_selfplay=True`` both
+    packages' Coaches find that at the first arena and play the float
+    tower, with the same results."""
+    jc, tc = _run_both(str(tmp_path), dict(
+        TINY, quant_selfplay=True, norm="groupnorm", numIters=1), "g")
+    tm = _assert_same_run(str(tmp_path), jc, tc, "g", 1)
+    assert jc._quant_ok is False and tc._quant_ok is False
+    assert tm[("arena_baseline/int8", 1)] == tm[("arena_past/int8", 1)] == 0
+
 
 def test_coach_resumes_in_a_fresh_coach(runs):
     root, _, tc = runs
@@ -256,7 +373,7 @@ def test_gating_decisions_match_jax(tmp_path, rule, wins, draws, cap,
     env = get_env("connect4")
     tc = Coach(env, NNetWrapper(env, args, device="cpu"), args)
     tc._save_model(tc.train_net, 1)
-    tc._arena = lambda kind: ArenaResult(
+    tc._arena = lambda kind, quant=False: ArenaResult(
         model_wins=torch.tensor(wins, dtype=torch.float32), draws=draws,
         avg_game_length=20.0, num_games=n, rounds=1)
     for c in (jc, tc):

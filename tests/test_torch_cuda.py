@@ -614,3 +614,64 @@ def test_cuda_tafl_search_never_waits_for_the_device(name):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert (tt.n[0] == 32).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,hw,cin,cout", [
+    (2048, (6, 7), 128, 128),    # connect4 production width
+    (512, (11, 11), 128, 128),   # hnefatafl production width
+    (3, (6, 7), 12, 20),         # channels padded to multiples of 8
+    (1, (3, 3), 8, 8),           # 9 rows, padded past cuBLASLt's 16
+], ids=["connect4", "hnefatafl", "padded_channels", "padded_rows"])
+def test_cuda_conv3x3_int8_matches_cpu(batch, hw, cin, cout):
+    """The int8 tower conv (torch._int_mm on the card) gives the CPU's
+    int32 accumulators exactly for the same int8 input, extremes of both
+    ranges included."""
+    from alphazero_general_tpu_torch.models import quant as Q
+
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(batch)
+    q = torch.randint(0, 128, (batch, *hw, cin), generator=gen,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen,
+                      dtype=torch.int8)
+    q[0, 0, 0] = 127
+    w[..., 0] = 127
+    want = Q.conv3x3_int8(q, Q.int8_weight_matrix(w), cout)
+    got = Q.conv3x3_int8(q.to(dev), Q.int8_weight_matrix(w.to(dev)), cout)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (batch, *hw, cout)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_cuda_int8_tower_matches_cpu():
+    """A small int8 tower quantized on the card and on the CPU from the
+    same weights and calibration batch: log-probabilities within 0.05 (an
+    int8 code at a rounding boundary may move where float32 sums differ in
+    order), and the card's tower conv products equal to the CPU's."""
+    from alphazero_general_tpu_torch.models import NNetWrapper
+    from alphazero_general_tpu_torch.models import quant as Q
+    from alphazero_general_tpu_torch.utils import get_args
+
+    dev = _cuda()
+    env = get_env("connect4")
+    args = get_args(num_channels=32, depth=2, value_head_channels=8,
+                    policy_head_channels=8, value_dense_layers=[32],
+                    policy_dense_layers=[32])
+    nets = {d: NNetWrapper(env, args, device=d) for d in ("cpu", dev)}
+    nets[dev].model.load_state_dict(nets["cpu"].model.state_dict())
+    calib = Q.calibration_observations(
+        env, batch=64, moves=12, device="cpu",
+        generator=torch.Generator().manual_seed(0))
+    qs = {d: n.quantized_inference(calib_obs=calib.to(d))
+          for d, n in nets.items()}
+    obs = Q.calibration_observations(
+        env, batch=32, moves=4, device="cpu",
+        generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        for a, b in zip(qs[dev](obs.to(dev)), qs["cpu"](obs)):
+            assert torch.allclose(a.cpu(), b, rtol=0, atol=0.05)
+        for a, w in qs[dev].conv_operands(obs.to(dev)):
+            assert torch.equal(Q.conv3x3_int8(a, w, 32).cpu(),
+                               Q.conv3x3_int8(a.cpu(), w.cpu(), 32))

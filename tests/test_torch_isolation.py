@@ -15,7 +15,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "alphazero_general_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "alphazero_general_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack",
+           "alphazero_general_tpu")
 
 
 def _port_modules():
@@ -174,6 +175,43 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     assert set(parts["host_ms"]) == set(C.STAGES)
 
 
+def test_chip_smoke_int8_phases_rehearse_on_cpu(capsys):
+    """The int8 phase (quantize on calibration playouts, each tower conv
+    against the CPU's, the forward and the accuracy bounds against the
+    bf16 ResNet, the timings and the conv's bound), int8 self-play moves
+    with their launch check, and the FC / GroupNorm phase, at a tiny size
+    on the CPU."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke as C
+    finally:
+        sys.path.remove(str(REPO))
+    from alphazero_general_tpu_torch.envs import get_env
+    from alphazero_general_tpu_torch.models import NNetWrapper
+    from alphazero_general_tpu_torch.selfplay import SelfPlayConfig
+    from alphazero_general_tpu_torch.utils import get_args
+
+    env = get_env("connect4")
+    net = NNetWrapper(env, get_args(num_channels=16, depth=2,
+                                    value_head_channels=4,
+                                    policy_head_channels=4,
+                                    value_dense_layers=[16],
+                                    policy_dense_layers=[16]), device="cpu")
+    r = C.int8_phase(env, net, 8, "cpu")
+    assert r["rows"] == 8 * 42 and r["channels"] == 16
+    assert r["card_err"] == 0.0 and r["kl"] < C.INT8_KL
+    assert r["int8_ms"] > 0 and r["conv_int8_ms"] > 0
+    b = r["bound"]
+    assert b["ops"] == 2 * 8 * 42 * 9 * 16 * 16
+    assert b["int8_patches"][0] > b["int8"][0] > 0
+    C.log_int8("connect4", r, "cpu")
+    assert "one 3x3 tower conv" in capsys.readouterr().out
+    cfg = SelfPlayConfig(sims_full=6, sims_fast=3)
+    sp = C.selfplay_phase(env, net.quant_model, cfg, 8, C.CYCLE, "cpu")
+    assert sp["launches"] == dict.fromkeys(C.COUNTED, 0)
+    assert set(C.other_nets_phase("cpu", batch=8)) == {"fc", "groupnorm"}
+
+
 def test_chip_smoke_coach_phase_rehearses_on_cpu(tmp_path, capsys):
     """The Coach phase (cli.train.main, then its checks of files, metrics
     and launch counters) and the train-step check, at a tiny size on the
@@ -192,6 +230,12 @@ def test_chip_smoke_coach_phase_rehearses_on_cpu(tmp_path, capsys):
                 min_next_model_winrate=0.0, **tiny_model)
     co = C.coach_phase("cpu", str(tmp_path), sets)
     assert co["launches"] == dict.fromkeys(C.COUNTED, 0)
+    # At the JAX default quant_selfplay=True: both arenas after iteration 1
+    # and iteration 2's self-play ran the int8 tower.
+    assert co["int8_forwards"] > 0
+    assert co["iters"][1]["int8"] == {"self_play": 0.0, "baseline": 1.0,
+                                      "past": 1.0}
+    assert co["iters"][2]["int8"] == {"self_play": 1.0}
     assert co["searches"] > 0 and co["simulations"] > co["searches"]
     assert sorted(co["iters"]) == [1, 2]
     assert co["iters"][1]["self_play_sims"] == co["iters"][1]["moves"] * 5
@@ -217,9 +261,10 @@ def test_chip_smoke_coach_phase_rehearses_on_cpu(tmp_path, capsys):
 def test_chip_smoke_tafl_phases_rehearse_on_cpu(tmp_path, capsys,
                                                 monkeypatch):
     """The tafl phases (the kernels at tafl search snapshots, hnefatafl
-    self-play with its sparse records and breakdown, the reference search,
-    and the brandubh Coach through cli.train.main with its checks) at a
-    tiny size on the CPU, and their four kernel records."""
+    self-play with its sparse records and breakdown, the hnefatafl int8
+    tower, the reference search, and the brandubh Coach through
+    cli.train.main with its checks) at a tiny size on the CPU, and their
+    four kernel records."""
     sys.path.insert(0, str(REPO))
     try:
         import chip_smoke as C
@@ -243,8 +288,10 @@ def test_chip_smoke_tafl_phases_rehearse_on_cpu(tmp_path, capsys,
         C.BRANDUBH_COACH_CUTS, gamesPerIteration=8, arenaCompare=8, **tiny))
     monkeypatch.setattr(tempfile, "TemporaryDirectory",
                         lambda: _Dir(tmp_path))
-    records = C.tafl_phases("cpu", "cpu")
+    records, int8 = C.tafl_phases("cpu", "cpu")
     out = capsys.readouterr().out
+    assert int8["rows"] == 8 * 121 and not int8["agreement_gated"]
+    assert "hnefatafl int8 tower at B=8" in out
     assert [r["name"] for r in records] == [
         "descend@hnefatafl", "backup@hnefatafl", "descend@brandubh",
         "backup@brandubh"]
