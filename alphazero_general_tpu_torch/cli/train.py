@@ -16,6 +16,7 @@ from alphazero_general_tpu_torch.cli.common import (
     add_args_overrides, add_device_arg, add_env_arg, resolve_args,
 )
 from alphazero_general_tpu_torch.envs import get_env
+from alphazero_general_tpu_torch.envs.stacked import maybe_stack
 
 
 def main(argv=None) -> int:
@@ -25,8 +26,9 @@ def main(argv=None) -> int:
     add_device_arg(p)
     ns = p.parse_args(argv)
 
-    env = get_env(ns.env)
     args = resolve_args(ns)
+    # num_stacked_observations > 1 wraps the env (JAX cli/train.py:51-55)
+    env = maybe_stack(get_env(ns.env), args)
 
     from alphazero_general_tpu_torch.models import NNetWrapper
     from alphazero_general_tpu_torch.train import Coach

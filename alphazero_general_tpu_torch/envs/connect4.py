@@ -12,7 +12,9 @@ import dataclasses
 
 import torch
 
-from alphazero_general_tpu_torch.envs.core import Env, EnvState
+from alphazero_general_tpu_torch.envs.core import (
+    Env, EnvState, decided_value,
+)
 
 HEIGHT = 6
 WIDTH = 7
@@ -113,6 +115,12 @@ class Connect4(Env):
         turn = (state.turns.to(torch.float32) * (1.0 / MAX_TURNS))[
             :, None, None].expand(shape)
         return torch.stack([p0, p1, colour, turn], dim=1)
+
+    @staticmethod
+    def crude_value(state: Connect4State) -> torch.Tensor:
+        """1 / 0 on a decided game from the mover's view, else 0.5 (JAX
+        connect4.py:125)."""
+        return decided_value(Connect4.win_state(state), state.player)
 
     @classmethod
     def symmetries(cls, obs: torch.Tensor, pi: torch.Tensor):

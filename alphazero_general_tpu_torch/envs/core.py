@@ -58,6 +58,11 @@ class Env:
     HAS_DRAW: bool = True
     #: number of symmetric copies returned by ``symmetries``
     NUM_SYMMETRIES: int = 1
+    #: True when ``step`` always advances ``player = (player + 1) % N`` (every
+    #: built-in env). The arena's owner routing relies on it (JAX
+    #: envs/core.py:66-72); an env that skips a player's turn sets False and
+    #: gets the evaluate-every-game path.
+    ALTERNATES: bool = True
 
     State: Type[EnvState] = EnvState
 
@@ -102,3 +107,29 @@ class Env:
     @classmethod
     def terminated(cls, state: EnvState) -> torch.Tensor:
         return torch.any(cls.win_state(state) > 0, dim=-1)
+
+
+def dihedral(obs: torch.Tensor, pi: torch.Tensor, n: int):
+    """The 8 dihedral images of square boards ``obs`` [B, C, n, n] and
+    policies ``pi`` [B, n*n], stacked on axis 1 in the JAX envs' order
+    (rot = 0..3 quarter turns as np.rot90, each then without and with a
+    left/right flip)."""
+    B = pi.shape[0]
+    pb = pi.reshape(B, n, n)
+    obs_list, pi_list = [], []
+    for rot in range(4):
+        o = torch.rot90(obs, rot, dims=(2, 3))
+        p = torch.rot90(pb, rot, dims=(1, 2))
+        for flip in (False, True):
+            obs_list.append(o.flip(-1) if flip else o)
+            pi_list.append((p.flip(-1) if flip else p).reshape(B, n * n))
+    return torch.stack(obs_list, dim=1), torch.stack(pi_list, dim=1)
+
+
+def decided_value(win: torch.Tensor, player: torch.Tensor) -> torch.Tensor:
+    """Mover-perspective value of a two-player win vector: 1 if the player
+    to move has won, 0 if the other has, else 0.5 (JAX tictactoe.py:84)."""
+    games = torch.arange(win.shape[0], device=win.device)
+    me = win[games, player.long()]
+    opp = win[games, ((player + 1) % 2).long()]
+    return torch.where(me > 0, 1.0, torch.where(opp > 0, 0.0, 0.5))

@@ -1,8 +1,6 @@
 """Per-env training presets — the port of
-alphazero_general_tpu/envs/presets.py, for the envs the port has.
-
-connect4's production config (reference: envs/connect4/train.py:11-51),
-and the tafl variants' (JAX envs/presets.py:73-96).
+alphazero_general_tpu/envs/presets.py (all eight; nim3 has none, as in
+the JAX package).
 """
 
 from __future__ import annotations
@@ -33,6 +31,41 @@ CONNECT4 = dict(
     scheduler_args=Args(milestones=[75, 150], gamma=0.1),
 )
 
+# tictactoe: small everything (reference: envs/tictactoe/train.py).
+TICTACTOE = dict(
+    run_name="tictactoe",
+    process_batch_size=512,
+    gamesPerIteration=2048,
+    numMCTSSims=25,
+    numFastSims=5,
+    num_channels=32,
+    depth=2,
+    arenaCompare=128,
+)
+
+# othello 8x8 (reference: envs/othello/train.py).
+OTHELLO = dict(
+    run_name="othello",
+    process_batch_size=1024,
+    gamesPerIteration=4096,
+    numMCTSSims=100,
+    numFastSims=20,
+    num_channels=64,
+    depth=6,
+    cpuct=2.0,
+)
+
+# gobang 15x15 (reference: envs/gobang/train.py).
+GOBANG = dict(
+    run_name="gobang",
+    process_batch_size=512,
+    gamesPerIteration=2048,
+    numMCTSSims=100,
+    numFastSims=20,
+    num_channels=64,
+    depth=6,
+)
+
 # brandubh 7x7 tafl (reference: envs/hnefatafl/train_brandubh.py).
 BRANDUBH = dict(
     run_name="brandubh",
@@ -59,8 +92,43 @@ HNEFATAFL = dict(
     policy_dense_layers=[2048, 512],
 )
 
-PRESETS = {"connect4": CONNECT4, "brandubh": BRANDUBH,
-           "hnefatafl": HNEFATAFL}
+STRATEGO = dict(
+    run_name="stratego",
+    process_batch_size=512,
+    gamesPerIteration=2048,
+    numMCTSSims=100,
+    numFastSims=20,
+    num_channels=64,
+    depth=8,
+)
+
+# chess (the reference's env is a stub; JAX envs/presets.py:108-124: defaults
+# for the 4672-action space, not reference-tuned).
+CHESS = dict(
+    run_name="chess",
+    process_batch_size=256,
+    gamesPerIteration=1024,
+    numMCTSSims=200,
+    numFastSims=40,
+    num_channels=128,
+    depth=10,
+    cpuct=2.5,
+    fpu_reduction=0.4,
+    symmetricSamples=False,
+    value_dense_layers=[2048, 256],
+    policy_dense_layers=[2048, 1024],
+)
+
+PRESETS = {
+    "connect4": CONNECT4,
+    "chess": CHESS,
+    "tictactoe": TICTACTOE,
+    "othello": OTHELLO,
+    "gobang": GOBANG,
+    "brandubh": BRANDUBH,
+    "hnefatafl": HNEFATAFL,
+    "stratego": STRATEGO,
+}
 
 
 def preset_args(env_name: str, **overrides) -> Args:

@@ -33,11 +33,16 @@ def backup_plain_(parent, player, leaf, value, max_depth, n, q, v,
     V = value.shape[1]
     maxd = torch.clamp(max_depth.to(torch.float32), min=1.0)
     log_md = spec.log_min_discount
+    # The draw share as a true division, like the kernel's: torch on CUDA
+    # divides by a Python number through its reciprocal, which rounds
+    # otherwise for 3 players (exact for 2).
+    draw = value[:, V - 1]
+    share = draw / torch.full_like(draw, spec.num_players)
 
     def value_at(p):
         val = value[games, p.long()]
         if spec.has_draw:
-            val = val + value[:, V - 1] / spec.num_players
+            val = val + share
         return val
 
     node = leaf.long()

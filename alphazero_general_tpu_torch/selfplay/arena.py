@@ -11,9 +11,14 @@ whole search (SelfPlayAgent.pyx:117-121).
 
 Seats and owner routing (Arena.pyx:264-281): the batch is split into
 NUM_PLAYERS contiguous seat-rotation groups; in group k, model m plays
-player (m + k) % N. Every env advances ``player = (player + 1) % N`` each
-step, so at round t the player to move in every running game is t % N and
-each model evaluates exactly one group (B/N observations) per simulation.
+player (m + k) % N. Every built-in env advances ``player = (player + 1) %
+N`` each step (``Env.ALTERNATES``), so at round t the player to move in
+every running game is t % N and each model evaluates exactly one group
+(B/N observations) per simulation. For an env with ``ALTERNATES = False``,
+or with ``ArenaConfig.route_owner=False``, every model evaluates every
+game and each game keeps the evaluation of model ``(player - group) % N``
+(JAX arena.py:125, 177-182): N forwards of the whole batch a simulation,
+the same games.
 
 Finished games stay frozen (their searches are discarded), and the host
 checks every 4 rounds whether all games are done. Nothing is compiled, so
@@ -41,6 +46,9 @@ class ArenaConfig(NamedTuple):
     sims: int = 100  # numMCTSSims (arena searches are full searches)
     arena_temp: float = 0.25  # arenaTemp
     tree_capacity: int = 0  # max_tree_nodes; 0 → sims + 2
+    # Owner routing: each model forwards only the games whose seat it owns
+    # this round; False evaluates every game with every model.
+    route_owner: bool = True
     spec: T.SearchSpec = T.SearchSpec(add_root_noise=False,
                                       add_root_temp=False)
 
@@ -125,12 +133,31 @@ def play_games_multi(env, cfg: ArenaConfig, apply_fns: Sequence[Callable],
             v[gm] = torch.exp(vm).to(torch.float32)
         return pi.reshape(B, A), v.reshape(B, V)
 
+    def eval_all(obs, model_idx):
+        """Every model evaluates the whole batch; each game keeps its own
+        model's evaluation."""
+        pi = torch.zeros((B, A), dtype=torch.float32, device=obs.device)
+        v = torch.zeros((B, V), dtype=torch.float32, device=obs.device)
+        for m in range(N):
+            pm, vm = apply_fns[m](obs)
+            sel = (model_idx == m)[:, None]
+            pi = torch.where(sel, torch.exp(pm).to(torch.float32), pi)
+            v = torch.where(sel, torch.exp(vm).to(torch.float32), v)
+        return pi, v
+
+    grouped = bool(getattr(env, "ALTERNATES", True)) and cfg.route_owner
+    group = torch.arange(N, device=device).repeat_interleave(G)
     done = torch.zeros((B,), dtype=torch.bool, device=device)
     result = torch.zeros((B, V), dtype=torch.float32, device=device)
     length = torch.zeros((B,), dtype=torch.int32, device=device)
     t = 0
     while t < int(env.MAX_TURNS):
-        eval_fn = lambda obs, t=t: eval_grouped(obs, t)  # noqa: E731
+        if grouped:
+            eval_fn = lambda obs, t=t: eval_grouped(obs, t)  # noqa: E731
+        else:
+            # model m plays game g where (m + group[g]) % N == player[g]
+            model_idx = (states.player - group) % N
+            eval_fn = lambda obs, m=model_idx: eval_all(obs, m)  # noqa: E731
         d = draws(t, cfg.sims, env.valid_moves(states)) if draws else None
         tt = init_tree_t(env, states, cfg.capacity, V)
         S.search(env, tt, cfg.spec, eval_fn, cfg.sims, generator=generator,
@@ -154,25 +181,51 @@ def play_games_multi(env, cfg: ArenaConfig, apply_fns: Sequence[Callable],
 
     # Seat remap: model m of group k played player (m + k) % N
     # (Arena.pyx:291-299).
-    grouped = result.reshape(N, G, V)
+    by_group = result.reshape(N, G, V)
     model_wins = torch.stack([
-        sum(grouped[k, :, (m + k) % N].sum() for k in range(N))
+        sum(by_group[k, :, (m + k) % N].sum() for k in range(N))
         for m in range(N)]).cpu()
     draws_n = float(result[:, N].sum()) if V > N else 0.0
+    # The jitted JAX mean multiplies the sum by the float32 reciprocal of
+    # the game count; the same product keeps the average bit-identical.
+    mean_length = length.to(torch.float32).sum() * (1.0 / B)
     return ArenaResult(model_wins=model_wins, draws=draws_n,
-                       avg_game_length=float(length.to(torch.float32).mean()),
+                       avg_game_length=float(mean_length),
                        num_games=B, rounds=t)
+
+
+def play_games(env, cfg: ArenaConfig, apply_fn, num_games: int,
+               apply_fn_b=None, generator=None, draws=None,
+               device="cuda") -> ArenaResult:
+    """Two-model wrapper over :func:`play_games_multi` (the gating and
+    baseline arenas, Coach.py:527-590); ``apply_fn_b`` lets model B use
+    another evaluation, e.g. the RawMCTS baseline. An env of other than two
+    players raises, as in the JAX package."""
+    return play_games_multi(env, cfg, [apply_fn, apply_fn_b or apply_fn],
+                            num_games, generator=generator, draws=draws,
+                            device=device)
 
 
 def make_arena_fn(env, cfg: ArenaConfig, apply_fn, num_games: int,
                   apply_fn_b=None, device="cuda"):
-    """Two-model arena (Coach.py:527-590): ``run(generator=None,
-    draws=None) -> ArenaResult``; ``apply_fn_b`` lets model B use another
-    evaluation, e.g. the RawMCTS baseline."""
-    fns = [apply_fn, apply_fn_b or apply_fn]
+    """Two-model arena: ``run(generator=None, draws=None) ->
+    ArenaResult``."""
 
     def run(generator=None, draws=None):
-        return play_games_multi(env, cfg, fns, num_games,
+        return play_games(env, cfg, apply_fn, num_games, apply_fn_b,
+                          generator=generator, draws=draws, device=device)
+
+    return run
+
+
+def make_multi_arena_fn(env, cfg: ArenaConfig, apply_fns: Sequence[Callable],
+                        num_games: int, device="cuda"):
+    """N-model arena (reference: the Arena's players list, Arena.pyx:58-76;
+    JAX arena.py:350): ``run(generator=None, draws=None) -> ArenaResult``
+    with ``model_wins[m]`` the wins of ``apply_fns[m]``."""
+
+    def run(generator=None, draws=None):
+        return play_games_multi(env, cfg, apply_fns, num_games,
                                 generator=generator, draws=draws,
                                 device=device)
 

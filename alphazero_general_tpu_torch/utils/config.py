@@ -183,9 +183,6 @@ def check_ported(args: Args) -> None:
     if int(args.get("mesh_batch_axis", -1)) not in (-1, 1):
         unported.append(f"mesh_batch_axis={args.mesh_batch_axis} (one "
                         "device only: -1 or 1)")
-    if int(args.get("num_stacked_observations", 1)) != 1:
-        unported.append("num_stacked_observations="
-                        f"{args.num_stacked_observations} (only 1)")
     if unported:
         raise ValueError("not ported yet: " + "; ".join(unported))
 

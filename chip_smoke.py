@@ -80,7 +80,7 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    249 simulations) and a 50-simulation one (N = 53), each timed at its
    last snapshot as in phase 3; brandubh's self-play searches (1024
    games, 150 and 30 simulations, N = 153 and 33) untimed; and a
-   brandubh arena round's search (128 games, 150 simulations, no root
+   brandubh arena round's search (64 games, 150 simulations, no root
    noise), timed. Then the prior rows' read and write per simulation,
    timed in the TreeT's batch-major layout and in a game-minor one.
 10. hnefatafl self-play: 4 moves (fast, fast, fast, full) of the preset
@@ -96,6 +96,35 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    ``cli.train``'s ``main``, cut as ``BRANDUBH_COACH_CUTS`` says, with the
    checks of phase 8 (the npz rows are dense pi rows of width 588; the
    float tower, ``quant_selfplay=False``, keeps that Coach path driven).
+
+13. env rollouts: random playouts of tictactoe, nim3, othello, gobang,
+   stratego, chess (from the six perft positions and random openings) and
+   othello with 4 stacked observations on the card and on the CPU, with
+   the same actions: every state field, valid mask, win vector and
+   observation equal at every ply (``ROLLOUT_ENVS``).
+14. chess kernels: the two game-minor kernels bit for bit against their
+   plain versions at the chess preset's shapes (a random 128 x 10 ResNet
+   with [2048, 256] / [2048, 1024] heads, 256 games from random openings,
+   A = 4672): a 200-simulation search (N = 203) and a 40-simulation one
+   (N = 43), held after 40 and 199 (20 and 39) simulations and timed at
+   the last snapshot as in phase 3.
+15. nim3 kernels: the same at nim3's (three players, ``value_size`` 4,
+   the default args' 100-simulation search at 256 games, N = 103).
+16. chess self-play: 4 moves (fast, fast, fast, full) of the preset through
+   ``make_move_fns``, with the launch checks of phase 5 and the full
+   move's sparse pi records densified to 4672-wide rows.
+17. chess breakdown: where the time of a 40-simulation search goes, as in
+   phase 7.
+18. chess reference: a search (32 games) on the card against the same
+   search on the CPU.
+19. other envs' self-play: one fast and one full move of othello,
+   gobang, tictactoe, stratego (sparse records), nim3 and othello with 4
+   stacked observations at their presets' widths, with the launch checks.
+20. nim3 arena: three random networks through ``make_multi_arena_fn``
+   (48 games): every game decided, every simulation through both kernels.
+21. othello coach: one Coach cycle of the othello preset through
+   ``cli.train``'s ``main``, cut as ``OTHELLO_COACH_CUTS`` says, at the
+   JAX default ``quant_selfplay=True``, with the checks of phase 8.
 
 Before the card's line come the int8 phases' numbers
 ``{"int8_tower": {...}}``; the last two lines are the kernels line
@@ -164,7 +193,7 @@ REUSE_SNAPSHOTS = (0, 50, 120, 199)
 TAFL_SNAPSHOTS = {("hnefatafl", 250): (50, 249), ("hnefatafl", 50): (20, 49),
                   ("brandubh", 150): (37, 149), ("brandubh", 30): (15, 29)}
 #: Games of a brandubh arena round (BRANDUBH_COACH_CUTS' arenaCompare).
-BRANDUBH_ARENA_GAMES = 128
+BRANDUBH_ARENA_GAMES = 64
 #: Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 #: float32 (non-tensor-core) operations/s, for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -549,14 +578,16 @@ def _descend_bytes(cols, walk) -> int:
 
 
 def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
-                 device, reps: int = 50, timed: bool = True):
+                 device, reps: int = 50, timed: bool = True,
+                 opening_plies: int = 6):
     """Both kernels against their plain versions at each snapshot of one
-    fresh-tree search, and, with ``timed``, their times and the bytes their
-    work needs at the last snapshot."""
+    fresh-tree search from random openings of up to ``opening_plies``
+    plies, and, with ``timed``, their times and the bytes their work needs
+    at the last snapshot."""
     last = snapshots[-1] if timed else None
     gen = torch.Generator(device).manual_seed(SEED)
     host_calls = HOST_CALLS if torch.device(device).type == "cuda" else reps
-    roots = random_openings(env, batch, 6, gen, device)
+    roots = random_openings(env, batch, opening_plies, gen, device)
     tt = init_tree_t(env, roots, sims + 2, spec.value_size)
     S._simulate_step_t(env, tt, spec, eval_fn, root_adjust=True, slot=0,
                        expand_root_only=True, generator=gen)
@@ -1833,14 +1864,15 @@ def connect4_phases(device, smi: str) -> tuple:
 #: ResNet 128 x 10 with [2048, 256] / [2048, 512] heads, train batch 1024)
 #: through ``cli.train.main``, cut to two iterations (the first a warmup
 #: one), one lockstep batch of games an iteration (preset: 4096), no
-#: baseline arena (preset: 128 games each iteration), one past arena of 128
-#: games, after iteration 1 (preset: one each iteration), a gate of 0
+#: baseline arena (preset: 128 games each iteration), one past arena of 64
+#: games, after iteration 1 (preset: 128 games each iteration; 64 leave
+#: the script room for the other envs' phases), a gate of 0
 #: (preset: 0.52) so that iteration 2 plays the trained network, and the
 #: float tower (``quant_selfplay=False``: the connect4 Coach drives the
 #: int8 one).
 BRANDUBH_COACH_CUTS = dict(numIters=2, numWarmupIters=1,
                            gamesPerIteration=1024, compareWithBaseline=False,
-                           pastCompareFreq=2, arenaCompare=128,
+                           pastCompareFreq=2, arenaCompare=64,
                            min_next_model_winrate=0.0, quant_selfplay=False)
 #: Games and simulations of the tafl reference phase (a hnefatafl search on
 #: the card against the CPU's), and the rows of its table evaluation.
@@ -1985,6 +2017,289 @@ def tafl_phases(device, smi: str) -> tuple:
              for k in ("descend", "backup")], i8)
 
 
+# --------------------------------------------------------------------------
+# The other envs (phases 13-21)
+# --------------------------------------------------------------------------
+
+#: The rollout phase's envs (card against CPU): games, and the plies to play
+#: (None: every game to its end). ``othello_x4`` is othello with
+#: ``num_stacked_observations=4``.
+ROLLOUT_ENVS = {"tictactoe": (256, None), "nim3": (256, None),
+                "othello": (256, None), "gobang": (128, None),
+                "stratego": (128, 200), "chess": (128, 200),
+                "othello_x4": (128, None)}
+#: The six perft positions of tests/test_chess.py (None: the start), first
+#: in the chess rollouts' batch; random openings fill the rest.
+PERFT_FENS = (
+    None,
+    "r3k2r/p1ppqpb1/bn2pnp1/3PN3/1p2P3/2N2Q1p/PPPBBPPP/R3K2R w KQkq - 0 1",
+    "8/2p5/3p4/KP5r/1R3p1k/8/4P1P1/8 w - - 0 1",
+    "r3k2r/Pppp1ppp/1b3nbN/nP6/BBP1P3/q4N2/Pp1P2PP/R2Q1RK1 w kq - 0 1",
+    "rnbq1k1r/pp1Pbppp/2p5/8/2B5/8/PPP1NnPP/RNBQK2R w KQ - 1 8",
+    "r4rk1/1pp1qppp/p1np1n2/2b1p1B1/2B1P1b1/P1NP1N2/1PP1QPPP/R4RK1 w - - 0 10",
+)
+#: Snapshots of the chess kernel phase by simulations (the preset's full
+#: and fast searches, N = 203 and 43); the last one of each is timed.
+CHESS_SNAPSHOTS = {200: (40, 199), 40: (20, 39)}
+#: Games of the nim3 kernel phase (the default args' 100-simulation
+#: search; N = 103) and its snapshots, the last one timed.
+NIM_GAMES = 256
+NIM_SNAPSHOTS = (50, 99)
+#: Games and simulations of the chess reference phase (a search on the
+#: card against the same search on the CPU), and its table's rows.
+CHESS_REFERENCE = dict(batch=32, sims=32, rows=1021)
+#: The envs whose self-play runs one fast and one full move at the
+#: preset's width (nim3, which has no preset: the default args).
+SELFPLAY_ENVS = ("othello", "gobang", "tictactoe", "stratego", "nim3",
+                 "othello_x4")
+#: Games of the three-model nim3 arena (make_multi_arena_fn).
+NIM_ARENA_GAMES = 48
+#: The othello Coach phase: the othello preset (envs/presets.py: 1024 games
+#: in lockstep, 100 full / 20 fast simulations, ResNet 64 x 6, 8
+#: symmetries) through ``cli.train.main``, cut to two iterations (the first
+#: a warmup one), one lockstep batch of games an iteration (preset: 4096),
+#: no baseline arena (preset: 128 games every iteration), one past arena of
+#: 128 games after iteration 1 (preset: 128 every iteration) and a gate of
+#: 0 (preset: 0.52), at the JAX default ``quant_selfplay=True``.
+OTHELLO_COACH_CUTS = dict(numIters=2, numWarmupIters=1,
+                          gamesPerIteration=1024, compareWithBaseline=False,
+                          pastCompareFreq=2, arenaCompare=128,
+                          min_next_model_winrate=0.0)
+
+
+def make_env(name: str):
+    """A registered env, or ``<env>_x<k>``: the env with ``k`` stacked
+    observations."""
+    from alphazero_general_tpu_torch.envs.stacked import make_stacked_env
+
+    base, _, k = name.partition("_x")
+    return make_stacked_env(get_env(base), int(k)) if k else get_env(base)
+
+
+def env_args(name: str, **overrides):
+    """The preset of ``name``'s base env (nim3: the default args), with
+    its stacked observations."""
+    base, _, k = name.partition("_x")
+    if k:
+        overrides.setdefault("num_stacked_observations", int(k))
+    return preset_args(base, **{"seed": SEED, **overrides})
+
+
+def _to(state, device):
+    return type(state)(**{k: x.to(device) for k, x in
+                          state_items(state).items()})
+
+
+def _freeze(done, new, old):
+    """Per game, ``old`` where ``done`` else ``new``."""
+    return type(new)(**{
+        k: torch.where(done.reshape((-1,) + (1,) * (x.dim() - 1)),
+                       getattr(old, k), x)
+        for k, x in state_items(new).items()})
+
+
+def rollout_phase(name: str, batch: int, plies, device) -> dict:
+    """Random playouts of ``name`` on the card and on the CPU from the same
+    states, with the same actions (drawn by a seeded numpy generator among
+    the valid moves the CPU reports): every state field, valid mask, win
+    vector and observation equal at every ply, until every game has ended
+    or for ``plies`` plies; finished games stay frozen."""
+    env = make_env(name)
+    gen = torch.Generator("cpu").manual_seed(SEED + 9)
+    if name == "chess":
+        from alphazero_general_tpu_torch.envs import chess as TC
+
+        first = [env.init(1, "cpu") if f is None else TC.from_fen(f)
+                 for f in PERFT_FENS]
+        rest = random_openings(env, batch - len(first), 12, gen, "cpu")
+        start = env.State(**{k: torch.cat([getattr(s, k) for s in first]
+                                          + [x])
+                             for k, x in state_items(rest).items()})
+    else:
+        start = env.init(batch, "cpu")
+    states = {"cpu": start, device: _to(start, device)}
+    rng = np.random.default_rng(SEED + 9)
+    limit = plies or env.MAX_TURNS + 1
+    done = torch.zeros(batch, dtype=torch.bool)
+    for ply in range(limit):
+        out = {}
+        for dev, s in states.items():
+            win, valid = env.win_and_valids(s)
+            out[dev] = (state_items(s), valid, win, env.observation(s))
+        (items, valid, win, obs), (d_items, d_valid, d_win, d_obs) = (
+            out["cpu"], out[device])
+        for k, x in items.items():
+            check(torch.equal(d_items[k].cpu(), x),
+                  f"{name} rollout ply {ply}: state field {k} differs")
+        for what, a, b in (("valid moves", d_valid, valid),
+                           ("win vector", d_win, win),
+                           ("observation", d_obs, obs)):
+            check(bits_equal(a.cpu(), b),
+                  f"{name} rollout ply {ply}: {what} differs")
+        done = (win > 0).any(dim=1)
+        if bool(done.all()):
+            break
+        v = valid.numpy()
+        action = torch.from_numpy(np.array(
+            [rng.choice(np.flatnonzero(row)) if not d else 0
+             for row, d in zip(v, done.numpy())], np.int32))
+        for dev, s in states.items():
+            dd = done.to(dev)
+            states[dev] = _freeze(dd, env.step(s, action.to(dev)), s)
+    return dict(plies=ply + 1, ended=int(done.sum()), games=batch)
+
+
+def nim_arena_phase(device) -> dict:
+    """A three-model nim3 arena (make_multi_arena_fn, three random nets of
+    the default args): every game decided, the wins and draws summing to
+    the games, and every simulation through both game-minor kernels."""
+    from alphazero_general_tpu_torch.selfplay.arena import (
+        make_multi_arena_fn)
+
+    env = get_env("nim3")
+    nets = [NNetWrapper(env, env_args("nim3", seed=SEED + m), device=device)
+            for m in range(3)]
+    cfg = ArenaConfig.from_args(nets[0].args, env.NUM_PLAYERS, env.HAS_DRAW)
+    run = make_multi_arena_fn(env, cfg, [n.model for n in nets],
+                              NIM_ARENA_GAMES, device=device)
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = run(generator=torch.Generator(device).manual_seed(SEED + 10))
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    wins = result.model_wins.tolist()
+    check(sum(wins) + result.draws == NIM_ARENA_GAMES,
+          f"nim3 arena: wins {wins} and draws {result.draws} do not sum to "
+          f"{NIM_ARENA_GAMES}: a game was left undecided")
+    expect = dict.fromkeys(COUNTED, 0)
+    if torch.device(device).type == "cuda":
+        expect.update(descend=result.rounds * (cfg.sims - 1),
+                      backup=result.rounds * cfg.sims)
+    check(launches == expect,
+          f"nim3 arena: kernel launches {launches} != expected {expect}")
+    return dict(wins=wins, draws=result.draws, rounds=result.rounds,
+                wall=wall, length=result.avg_game_length)
+
+
+def env_phases(device, smi: str) -> list:
+    """Phases 13-21; returns the kernel records at the chess and nim3
+    shapes."""
+    t0 = time.perf_counter()
+    for name, (batch, plies) in ROLLOUT_ENVS.items():
+        t1 = time.perf_counter()
+        r = rollout_phase(name, batch, plies, device)
+        log(f"  {name}: {r['games']} games x {r['plies']} plies on {device} "
+            f"== cpu (every state field, valid mask, win vector and "
+            f"observation); {r['ended']} games ended; "
+            f"{time.perf_counter() - t1:.1f} s")
+    log(f"phase env rollouts: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    env = get_env("chess")
+    args = env_args("chess")
+    cfg = SelfPlayConfig.from_args(args, env.NUM_PLAYERS, env.HAS_DRAW)
+    batch = int(args.process_batch_size)
+    net = NNetWrapper(env, args, device=device)
+    errs = {"descend": 0.0, "backup": 0.0}
+    timing = {}
+    for sims in (cfg.sims_full, cfg.sims_fast):
+        log(f"  chess: B={batch}, {sims} simulations")
+        e, timing[sims] = kernel_phase(env, net.make_eval_fn(), cfg.spec,
+                                       batch, sims, CHESS_SNAPSHOTS[sims],
+                                       device)
+        errs = {k: max(errs[k], e[k]) for k in errs}
+        t = timing[sims]
+        for k in ("descend", "backup"):
+            log_timing(k, t[k])
+        log(f"  descend needs {t['descend']['bytes']:,} bytes over "
+            f"{t['descend']['depth_sum']:,} walk steps (deepest walk "
+            f"{t['descend']['depth_max']}); backup walks "
+            f"{t['backup']['path_sum']:,} path edges (longest path "
+            f"{t['backup']['path_max']}); card: {smi}")
+    log(f"phase chess kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    nim = get_env("nim3")
+    nim_args = env_args("nim3")
+    nim_cfg = SelfPlayConfig.from_args(nim_args, nim.NUM_PLAYERS,
+                                       nim.HAS_DRAW)
+    nim_net = NNetWrapper(nim, nim_args, device=device)
+    log(f"  nim3: B={NIM_GAMES}, {nim_cfg.sims_full} simulations, "
+        f"{nim.NUM_PLAYERS} players, value_size {nim_cfg.spec.value_size}")
+    # Openings of at most 2 plies: a pile of 15 keeps 9 tokens or more.
+    e, nim_timing = kernel_phase(nim, nim_net.make_eval_fn(), nim_cfg.spec,
+                                 NIM_GAMES, nim_cfg.sims_full, NIM_SNAPSHOTS,
+                                 device, opening_plies=2)
+    nim_errs = e
+    for k in ("descend", "backup"):
+        log_timing(k, nim_timing[k])
+    log(f"phase nim3 kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    sp = selfplay_phase(env, net.model, cfg, batch, CYCLE, device)
+    log(f"  chess self-play: {sp['sims_per_s']:,.0f} sims/s over "
+        f"{len(sp['moves'])} moves ({sp['wall_ms_per_sim']:.3f} ms a "
+        f"simulation of {batch} games); launches {sp['launches']}; peak "
+        f"memory {sp['peak_bytes'] / 2**30:.2f} GiB; the full move's pi "
+        f"rows densified to {env.ACTION_SIZE} wide, summing to 1 over valid "
+        f"moves; card: {smi}")
+    log(f"phase chess self-play: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    b = breakdown_phase(env, net.make_eval_fn(), cfg.spec, batch,
+                        cfg.sims_fast, device)
+    log(f"  chess {cfg.sims_fast}-sim search: the env step and expansion "
+        f"(stage expand) {b['device_ms']['expand']:.4f} ms of device time "
+        f"and {b['host_ms']['expand']:.4f} ms of host time a simulation, of "
+        f"{b['wall_ms_per_sim']:.3f} ms wall; card: {smi}")
+    log(f"phase chess breakdown: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    reference_phase(env, device, **CHESS_REFERENCE)
+    log(f"phase chess reference: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    del net
+    nim_launches = None
+    for name in SELFPLAY_ENVS:
+        e_env = make_env(name)
+        e_args = env_args(name)
+        e_cfg = SelfPlayConfig.from_args(e_args, e_env.NUM_PLAYERS,
+                                         e_env.HAS_DRAW)
+        e_batch = int(e_args.process_batch_size)
+        model = NNetWrapper(e_env, e_args, device=device).model
+        r = selfplay_phase(e_env, model, e_cfg, e_batch, ("fast", "full"),
+                           device)
+        if name == "nim3":
+            nim_launches = r["launches"]
+        log(f"  {name} self-play: {e_batch} games, {e_cfg.sims_fast} / "
+            f"{e_cfg.sims_full} sims, {e_args.num_channels} x "
+            f"{e_args.depth}: {r['sims_per_s']:,.0f} sims/s over "
+            f"{len(r['moves'])} moves; launches {r['launches']}; peak "
+            f"memory {r['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"phase other envs' self-play: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    a = nim_arena_phase(device)
+    log(f"  nim3 three-model arena: {NIM_ARENA_GAMES} games, wins "
+        f"{a['wins']}, draws {a['draws']}, {a['rounds']} rounds, mean "
+        f"length {a['length']:.2f}, {a['wall']:.2f} s")
+    log(f"phase nim3 arena: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        co = coach_phase(device, root, OTHELLO_COACH_CUTS, "othello")
+        log_coach(co, smi)
+    log(f"phase othello coach: {time.perf_counter() - t0:.1f} s")
+    return ([kernel_record(f"{k}@chess", k, timing[cfg.sims_full][k],
+                           sp["launches"][k], errs[k])
+             for k in ("descend", "backup")]
+            + [kernel_record(f"{k}@nim3", k, nim_timing[k], nim_launches[k],
+                             nim_errs[k]) for k in ("descend", "backup")])
+
+
 def main() -> int:
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -2000,12 +2315,13 @@ def main() -> int:
 
     records, c4_int8 = connect4_phases(device, smi)
     tafl_records, tafl_int8 = tafl_phases(device, smi)
+    env_records = env_phases(device, smi)
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
     log(json.dumps({"int8_tower": {"connect4": c4_int8,
                                    "hnefatafl": tafl_int8, "card": smi}}))
     log(smi)
-    log(json.dumps({"kernels": records + tafl_records}))
+    log(json.dumps({"kernels": records + tafl_records + env_records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": device_count}}))
     return 0

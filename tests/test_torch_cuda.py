@@ -1,8 +1,9 @@
 """The CUDA kernels on the card: each against its plain PyTorch version, in
-both tree layouts and at the tafl presets' search shapes, whole searches
-(connect4, hnefatafl), a reuse move and arenas (connect4, brandubh) on the
-card against the same on the CPU, a tafl search that never waits for the
-device, and the wrappers' input checks.
+both tree layouts and at the tafl, chess and nim3 search shapes, whole
+searches (connect4, hnefatafl), a reuse move and arenas (connect4,
+brandubh) on the card against the same on the CPU, tafl and chess
+searches that never wait for the device, every env's rollouts on the card
+against the CPU's, and the wrappers' input checks.
 
 Every test here is marked ``gpu`` and skips, by a decision taken inside
 the test, where there is no CUDA device. This file imports neither JAX nor
@@ -457,12 +458,14 @@ def test_cuda_train_step_matches_cpu():
 
 def _table_eval(env, rows=509, seed=0):
     """Table lookup on an integer hash of the piece planes (every plane but
-    colour and turn): bit-identical policy and value rows on any device."""
+    the last two: colour and turn in connect4 and tafl): bit-identical
+    policy and value rows on any device."""
     rng = np.random.default_rng(seed)
-    planes = env.OBS_SHAPE[0] - 2
+    planes = max(env.OBS_SHAPE[0] - 2, 1)  # othello, tictactoe: 1 plane
     pi_tab = torch.from_numpy(
         rng.dirichlet(np.ones(env.ACTION_SIZE), rows).astype(np.float32))
-    v_tab = torch.from_numpy(rng.dirichlet(np.ones(3), rows).astype(
+    value_size = env.NUM_PLAYERS + int(env.HAS_DRAW)
+    v_tab = torch.from_numpy(rng.dirichlet(np.ones(value_size), rows).astype(
         np.float32))
     w = torch.from_numpy(rng.integers(1, rows, size=(
         planes * env.OBS_SHAPE[1] * env.OBS_SHAPE[2],)))
@@ -592,21 +595,19 @@ def test_cuda_brandubh_arena_matches_cpu():
     assert launched == (got.rounds * (cfg.sims - 1), got.rounds * cfg.sims)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("name", ["hnefatafl", "brandubh"])
-def test_cuda_tafl_search_never_waits_for_the_device(name):
-    """A tafl search on the card (env steps, kernels, prior installs, tie
-    noise from a generator) makes no call that waits for the device:
-    CUDA's sync debug mode turns any such call into an error."""
+def _search_without_sync(name):
+    """A search of ``name`` on the card (env steps, kernels, prior
+    installs, tie noise from a generator) under CUDA's sync debug mode,
+    which turns any call that waits for the device into an error."""
     dev = _cuda()
-    env = get_env(name)
+    env = _env(name)
     roots = _tafl_openings(env, 64, dev)
     eval_fn = _table_eval(env)
-    spec = SearchSpec(**SPEC_KW)
+    spec = _spec_of(env)
     gen = torch.Generator(dev).manual_seed(0)
-    S.search(env, init_tree_t(env, roots, 10, 3), spec, eval_fn, 8,
-             generator=gen)  # warm-up: tables, allocator, library load
-    tt = init_tree_t(env, roots, 34, 3)
+    S.search(env, init_tree_t(env, roots, 10, spec.value_size), spec,
+             eval_fn, 8, generator=gen)  # warm-up: tables, allocator
+    tt = init_tree_t(env, roots, 34, spec.value_size)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -614,6 +615,126 @@ def test_cuda_tafl_search_never_waits_for_the_device(name):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert (tt.n[0] == 32).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["hnefatafl", "brandubh"])
+def test_cuda_tafl_search_never_waits_for_the_device(name):
+    """A tafl search on the card makes no call that waits for the
+    device."""
+    _search_without_sync(name)
+
+
+@pytest.mark.gpu
+def test_cuda_chess_search_never_waits_for_the_device():
+    """A chess search on the card (the move generator, the Zobrist hashes,
+    the repetition ring, prior rows of 4672 actions) makes no call that
+    waits for the device."""
+    _search_without_sync("chess")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["stratego", "othello", "gobang",
+                                  "tictactoe", "nim3", "othello_x4"])
+def test_cuda_env_search_never_waits_for_the_device(name):
+    """A search of every other new env on the card (``othello_x4``:
+    othello with 4 stacked observations) makes no call that waits for the
+    device."""
+    _search_without_sync(name)
+
+
+def _env(name):
+    """A registered env, or ``<env>_x<k>``: it with ``k`` stacked
+    observations."""
+    from alphazero_general_tpu_torch.envs.stacked import make_stacked_env
+
+    base, _, k = name.partition("_x")
+    return make_stacked_env(get_env(base), int(k)) if k else get_env(base)
+
+
+def _spec_of(env):
+    return SearchSpec(**dict(SPEC_KW, num_players=env.NUM_PLAYERS,
+                             has_draw=env.HAS_DRAW))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,sims", [
+    ("chess", 256, 200), ("chess", 256, 40), ("nim3", 256, 100)])
+def test_cuda_kernels_match_plain_on_env_searches(name, B, sims):
+    """Both game-minor kernels bit for bit against their plain versions at
+    the chess preset's shapes (A = 4672, B = 256, N = 203 and 43) and at
+    nim3's (three players, value_size 4, N = 103), at a quarter, half and
+    all but one of the simulations of a search."""
+    dev = _cuda()
+    env = get_env(name)
+    spec = _spec_of(env)
+    eval_fn = _table_eval(env)
+    tt = init_tree_t(env, _tafl_openings(env, B, dev, plies=2 if name ==
+                                         "nim3" else 8),
+                     sims + 2, spec.value_size)
+    gen = torch.Generator(dev).manual_seed(0)
+    S._simulate_step_t(env, tt, spec, eval_fn, True, 0, True, generator=gen)
+    checked = 0
+    for slot in range(1, sims):
+        if slot not in (sims // 4, sims // 2, sims - 1):
+            S._simulate_step_t(env, tt, spec, eval_fn, False, slot,
+                               generator=gen)
+            continue
+        cols = [getattr(tt, c) for c in COLUMNS]
+        got = OD.descend_columns(*cols, spec)
+        torch.cuda.synchronize()
+        want = OD.descend_plain(*cols, spec.cpuct, spec.fpu_reduction)
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w))
+        values = S._leaf_step_t(env, tt, spec, eval_fn, False, slot, False,
+                                gen)
+        args = (tt.parent, tt.player, tt.leaf, values, tt.max_depth)
+        k_nqv = [tt.n.clone(), tt.q.clone(), tt.v.clone()]
+        OB.backup_columns_(*args, *k_nqv, spec)
+        torch.cuda.synchronize()
+        OB.backup_plain_(*args, tt.n, tt.q, tt.v, spec)
+        for g, w in zip(k_nqv, (tt.n, tt.q, tt.v)):
+            assert torch.equal(_bits(g), _bits(w))
+        checked += 1
+    assert checked == 3 and (tt.n[0] == sims).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["tictactoe", "nim3", "othello", "gobang",
+                                  "stratego", "chess", "othello_x4"])
+def test_cuda_env_rollouts_match_cpu(name):
+    """32 random playouts of 40 plies (or to their end) on the card and on
+    the CPU with the same actions: every state field, valid mask, win
+    vector and observation equal at every ply (``othello_x4``: othello
+    with 4 stacked observations)."""
+    dev = _cuda()
+    env = _env(name)
+    rng = np.random.default_rng(6)
+    states = {"cpu": env.init(32, "cpu"), "cuda": env.init(32, dev)}
+    for ply in range(40):
+        out = {}
+        for d, st in states.items():
+            win, valid = env.win_and_valids(st)
+            out[d] = (state_items(st), valid, win, env.observation(st))
+        for a, b in zip(out["cuda"][1:], out["cpu"][1:]):
+            assert torch.equal(_bits(a.cpu()), _bits(b)), ply
+        for f, x in out["cpu"][0].items():
+            assert torch.equal(out["cuda"][0][f].cpu(), x), (ply, f)
+        win, valid = out["cpu"][2], out["cpu"][1]
+        done = (win > 0).any(dim=1)
+        if bool(done.all()):
+            break
+        action = torch.tensor([int(rng.choice(np.flatnonzero(v)))
+                               if not d_ else 0 for v, d_ in
+                               zip(valid.numpy(), done.numpy())],
+                              dtype=torch.int32)
+        for d, st in states.items():
+            nxt = env.step(st, action.to(st.player.device))
+            keep = done.to(st.player.device)
+            states[d] = env.State(**{
+                f: torch.where(keep.reshape((-1,) + (1,) * (x.dim() - 1)),
+                               getattr(st, f), x)
+                for f, x in state_items(nxt).items()})
 
 
 @pytest.mark.gpu

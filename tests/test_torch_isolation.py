@@ -303,6 +303,59 @@ def test_chip_smoke_tafl_phases_rehearse_on_cpu(tmp_path, capsys,
     assert "arena past" in out and "arena baseline" not in out
 
 
+def test_chip_smoke_env_phases_rehearse_on_cpu(tmp_path, capsys,
+                                               monkeypatch):
+    """The phases of the other envs (rollouts of every new env, the
+    kernels at chess and nim3 search snapshots, chess self-play with its
+    breakdown and reference search, one fast and one full move of every
+    other env, the three-model nim3 arena, and the othello Coach through
+    cli.train.main with its checks) at a tiny size on the CPU, and their
+    four kernel records."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke as C
+    finally:
+        sys.path.remove(str(REPO))
+    tiny = dict(process_batch_size=8, numMCTSSims=12, numFastSims=4,
+                numWarmupSims=3, num_channels=8, depth=1,
+                value_head_channels=2, policy_head_channels=2,
+                value_dense_layers=[16], policy_dense_layers=[16],
+                deviceWindowRows=16384, train_batch_size=64)
+    preset = C.preset_args
+    monkeypatch.setattr(C, "preset_args",
+                        lambda name, **kw: preset(name, **{**tiny, **kw}))
+    monkeypatch.setattr(C, "ROLLOUT_ENVS", {
+        "tictactoe": (8, None), "nim3": (8, None), "othello": (4, 12),
+        "gobang": (4, 12), "stratego": (4, 12), "chess": (8, 12),
+        "othello_x4": (4, 12)})
+    monkeypatch.setattr(C, "CHESS_SNAPSHOTS", {12: (3, 11), 4: (2, 3)})
+    monkeypatch.setattr(C, "NIM_GAMES", 8)
+    monkeypatch.setattr(C, "NIM_SNAPSHOTS", (3, 11))
+    monkeypatch.setattr(C, "CHESS_REFERENCE", dict(batch=4, sims=6,
+                                                    rows=101))
+    monkeypatch.setattr(C, "NIM_ARENA_GAMES", 6)
+    monkeypatch.setattr(C, "HOST_CALLS", 2)
+    monkeypatch.setattr(C, "OTHELLO_COACH_CUTS", dict(
+        C.OTHELLO_COACH_CUTS, gamesPerIteration=8, arenaCompare=8, **tiny))
+    monkeypatch.setattr(tempfile, "TemporaryDirectory",
+                        lambda: _Dir(tmp_path))
+    records = C.env_phases("cpu", "cpu")
+    out = capsys.readouterr().out
+    assert [r["name"] for r in records] == [
+        "descend@chess", "backup@chess", "descend@nim3", "backup@nim3"]
+    assert [(r["N"], r["B"]) for r in records] == [(15, 8)] * 4
+    assert all(r["max_abs_err"] == 0.0 and r["launches"] == 0
+               and r["bound_ms"] > 0 for r in records)
+    for name in C.ROLLOUT_ENVS:
+        assert f"  {name}: " in out and "== cpu" in out
+    for name in C.SELFPLAY_ENVS:
+        assert f"  {name} self-play:" in out
+    assert "chess self-play" in out and "(stage expand)" in out
+    assert "nim3 three-model arena: 6 games" in out
+    assert "othello coach cycle through cli.train.main" in out
+    assert "arena past" in out and "arena baseline" not in out
+
+
 class _Dir:
     """A TemporaryDirectory stand-in that yields a pytest tmp_path."""
 
