@@ -2,7 +2,7 @@
 
 The JAX package beside this one is the reference; each module here mirrors
 its counterpart's path (``envs/``, ``mcts/``, ``ops/``, ``models/``,
-``selfplay/``, ``utils/``). State is batched torch tensors, every stochastic
+``selfplay/``, ``train/``, ``players/``, ``cli/``, ``utils/``). State is batched torch tensors, every stochastic
 step takes its random draws as an optional argument or an explicit
 ``torch.Generator``, and the two Pallas kernels of the JAX package (the PUCT
 descent and the backup) are hand-written CUDA kernels under ``csrc/``, built

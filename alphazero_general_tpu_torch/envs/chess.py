@@ -610,6 +610,21 @@ class Chess(Env):
         mine = torch.clamp(mine, -_MAT_MAX, _MAT_MAX)
         return torch.clamp(tb["crude"][mine + _MAT_MAX], 0.0, 1.0)
 
+    @classmethod
+    def display(cls, state) -> str:
+        """Game 0 of ``state`` as text, as the JAX env prints it
+        (chess.py:512)."""
+        sym = {0: ".", PAWN: "P", KNIGHT: "N", BISHOP: "B", ROOK: "R",
+               QUEEN: "Q", KING: "K", -PAWN: "p", -KNIGHT: "n", -BISHOP: "b",
+               -ROOK: "r", -QUEEN: "q", -KING: "k"}
+        b = state.board[0].tolist()
+        rows = [f"{r + 1} " + " ".join(sym[int(v)] for v in b[r])
+                for r in range(7, -1, -1)]
+        rows.append("  a b c d e f g h")
+        rows.append("White to move" if int(state.player[0]) == 0
+                    else "Black to move")
+        return "\n".join(rows)
+
 
 Game = Chess
 

@@ -127,5 +127,15 @@ class Connect4(Env):
         return (torch.stack([obs, obs.flip(-1)], dim=1),
                 torch.stack([pi, pi.flip(-1)], dim=1))
 
+    @classmethod
+    def display(cls, state) -> str:
+        """Game 0 of ``state`` as text, as the JAX env prints it
+        (connect4.py:134)."""
+        chars = {0: ".", 1: "X", -1: "O"}
+        rows = [" ".join(chars[int(v)] for v in row)
+                for row in state.board[0].tolist()]
+        rows.append(" ".join(map(str, range(WIDTH))))
+        return "\n".join(rows)
+
 
 Game = Connect4

@@ -16,6 +16,7 @@ JAX (one game)         here (a batch of B games)
 ``observation(s)``     ``observation(state) -> f32[B, C, H, W]``
 ``symmetries(o, p)``   ``symmetries(obs, pi) -> (obs[B, K, ...], pi[B, K, A])``
 ``crude_value(s)``     ``crude_value(state) -> f32[B]`` (optional)
+``display(s)``         ``display(state) -> str`` (game 0 of the batch)
 =====================  ======================================================
 
 ``win_and_valids(state)`` returns both results of ``win_state`` and
@@ -103,6 +104,11 @@ class Env:
         """Cheap heuristic value f32[B] in [0, 1] for greedy baselines
         (reference: envs/brandubh/fastafl.pyx:258-268). Optional."""
         raise NotImplementedError
+
+    @classmethod
+    def display(cls, state: EnvState) -> str:
+        """Game 0 of ``state`` as text (each env prints its board)."""
+        return repr({k: x[0].tolist() for k, x in state_items(state).items()})
 
     @classmethod
     def terminated(cls, state: EnvState) -> torch.Tensor:

@@ -112,5 +112,14 @@ class Gobang(Env):
     def symmetries(cls, obs: torch.Tensor, pi: torch.Tensor):
         return dihedral(obs, pi, N)
 
+    @classmethod
+    def display(cls, state) -> str:
+        """Game 0 of ``state`` as text, as the JAX env prints it
+        (gobang.py:125)."""
+        chars = {0: ".", 1: "X", -1: "O"}
+        rows = [" ".join(chars[int(v)] for v in row)
+                for row in state.board[0].tolist()]
+        return "\n".join(rows)
+
 
 Game = Gobang

@@ -74,5 +74,12 @@ class Nim3(Env):
         return torch.cat([pile[:, None], seats], dim=1).to(
             torch.float32)[:, :, None, :]
 
+    @classmethod
+    def display(cls, state) -> str:
+        """Game 0 of ``state`` as text, as the JAX env prints it
+        (nim.py:93)."""
+        return (f"pile={int(state.pile[0])} "
+                f"to-move=P{int(state.player[0])}")
+
 
 Game = Nim3

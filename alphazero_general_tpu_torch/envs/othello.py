@@ -177,5 +177,14 @@ class Othello(Env):
         diff = state.board.flatten(1).to(torch.int32).sum(dim=1) * piece
         return 0.5 + 0.5 * torch.tanh(diff.to(torch.float32) / 16.0)
 
+    @classmethod
+    def display(cls, state) -> str:
+        """Game 0 of ``state`` as text, as the JAX env prints it
+        (othello.py:183)."""
+        chars = {0: ".", 1: "W", -1: "b"}
+        rows = [" ".join(chars[int(v)] for v in row)
+                for row in state.board[0].tolist()]
+        return "\n".join(rows)
+
 
 Game = Othello

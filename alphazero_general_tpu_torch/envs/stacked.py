@@ -100,6 +100,10 @@ def make_stacked_env(base: type, k: int) -> type:
         def crude_value(state):
             return base.crude_value(inner(state))
 
+        @classmethod
+        def display(cls, state):
+            return base.display(inner(state))
+
     Stacked.State = State
     Stacked.inner = staticmethod(inner)
     Stacked.__name__ = f"{base.__name__}X{k}"

@@ -390,5 +390,26 @@ class Stratego(Env):
         r, c = divmod(cell, W)
         return (r, c), (int(DEST_R[r, c, mt]), int(DEST_C[r, c, mt]))
 
+    @classmethod
+    def display(cls, state) -> str:
+        """Game 0 of ``state`` as text, as the JAX env prints it
+        (stratego.py:428): ``~`` a lake, ``r``/``b`` and the rank in hex a
+        piece, ``!`` a revealed one."""
+        out = []
+        for board_row in state.board[0].tolist():
+            row = []
+            for v in map(int, board_row):
+                b = v % VISIBLE_OFFSET
+                if v == 0:
+                    row.append(" . ")
+                elif b == LAKE:
+                    row.append(" ~ ")
+                else:
+                    team = "r" if b <= NUM_PIECES else "b"
+                    vis = "!" if v >= VISIBLE_OFFSET else " "
+                    row.append(f"{team}{b % TEAM_OFFSET:x}{vis}")
+            out.append("".join(row))
+        return "\n".join(out)
+
 
 Game = Stratego

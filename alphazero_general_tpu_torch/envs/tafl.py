@@ -516,6 +516,15 @@ def make_tafl_env(name: str, board_str: str, king_two_sided_capture: bool,
                 mt = (H - 1) + (c2 if c2 < c else c2 - 1)
             return (c + r * W) * MT + mt
 
+        @classmethod
+        def display(cls, state) -> str:
+            """Game 0 of ``state`` as text, as the JAX env prints it
+            (tafl.py:567)."""
+            chars = {0: ".", 1: "w", 2: "b", 3: "K", 4: "+", 5: "x",
+                     7: "K", 8: "K"}
+            return "\n".join(" ".join(chars[int(v)] for v in row)
+                             for row in state.board[0].tolist())
+
     Tafl.__name__ = name.capitalize()
     return Tafl
 

@@ -89,5 +89,14 @@ class TicTacToe(Env):
     def symmetries(cls, obs: torch.Tensor, pi: torch.Tensor):
         return dihedral(obs, pi, N)
 
+    @classmethod
+    def display(cls, state) -> str:
+        """Game 0 of ``state`` as text, as the JAX env prints it
+        (tictactoe.py:111)."""
+        chars = {0: ".", 1: "O", -1: "X"}
+        rows = [" ".join(chars[int(v)] for v in row)
+                for row in state.board[0].tolist()]
+        return "\n".join(rows)
+
 
 Game = TicTacToe

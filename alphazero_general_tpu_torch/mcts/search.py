@@ -1,7 +1,8 @@
 """Batched search loops — the port of alphazero_general_tpu/mcts/search.py
-(``search`` :347, its fresh-tree game-minor path ``_search_t`` :288 and
-``_simulate_step_t`` :209, its general path ``simulate_step`` :83-164, and
-``uniform_eval_fn`` :428).
+(``init_batched_trees`` :26, ``search`` :347, its fresh-tree game-minor
+path ``_search_t`` :288 and ``_simulate_step_t`` :209, its general path
+``simulate_step`` :83-164, ``uniform_eval_fn`` :428 and ``raw_search``
+:447).
 
 One simulation for every game is: the descent kernel, the leaf's allocation
 and expansion, ONE batched network call, the prior install, and the backup
@@ -9,7 +10,8 @@ kernel. Two paths, as in the JAX package:
 
 * fresh trees (a ``TreeT``): simulation k writes row k of every game;
 * carried trees (a batch-major ``Tree``, self-play with tree reuse): each
-  game allocates at its own ``next_free``.
+  game allocates at its own ``next_free``. A fresh batch-major ``Tree``
+  (the players' and the evaluator's, one game) runs the same path.
 
 The loop over simulations runs on the host and never waits for the device:
 nothing in it reads a tensor back.
@@ -128,10 +130,13 @@ def search(env, tree, spec: SearchSpec, eval_fn: EvalFn, sims: int,
     """Run ``sims`` simulations (MCTS.pyx:165-173) and return the trees,
     updated in place.
 
-    ``fresh_tree=True`` takes a fresh game-minor ``TreeT`` (never searched)
-    and writes simulation k at row k of every game; ``fresh_tree=False``
-    takes a batch-major ``Tree`` carried across moves, as self-play with
-    tree reuse does (search.py:417-425). Any other mix raises.
+    ``fresh_tree=True`` takes trees never searched: a game-minor ``TreeT``,
+    whose simulation k writes row k of every game, or a batch-major
+    ``Tree`` (the players' trees), whose games each allocate at their own
+    ``next_free`` as the JAX package's batch-major fresh search does
+    (search.py:389-415). ``fresh_tree=False`` takes a batch-major ``Tree``
+    carried across moves, as self-play with tree reuse does
+    (search.py:417-425). A ``TreeT`` with ``fresh_tree=False`` raises.
 
     Only the first simulation can have the root as its leaf, so only it
     takes the root temperature and noise (MCTS.pyx:247-256). Random draws
@@ -140,20 +145,27 @@ def search(env, tree, spec: SearchSpec, eval_fn: EvalFn, sims: int,
     ``tie_noise=0`` draws nothing.
     """
     draws = draws or SearchDraws()
-    if fresh_tree:
-        if not isinstance(tree, TT.TreeT):
-            raise TypeError("a fresh-tree search takes a TreeT, got "
-                            f"{type(tree).__name__}")
+    if isinstance(tree, TT.TreeT):
+        if not fresh_tree:
+            raise TypeError("a search on carried trees takes a batch-major "
+                            "Tree, got TreeT")
         if not 1 <= sims <= tree.capacity:
             raise ValueError(f"sims must be in [1, {tree.capacity}] (the "
                              f"tree's node rows), got {sims}")
         return _search_t(env, tree, spec, eval_fn, sims, generator, draws)
     if not isinstance(tree, T.Tree):
-        raise TypeError("a search on carried trees takes a batch-major Tree, "
-                        f"got {type(tree).__name__}")
+        raise TypeError(f"search takes a TreeT or a Tree, got "
+                        f"{type(tree).__name__}")
     # One read of the allocation fronts per search: every simulation
     # allocates at most one row per game, which must not reach the sink.
-    room = tree.capacity - int(tree.next_free.max())
+    front = int(tree.next_free.max())
+    if fresh_tree:
+        if front != 1:
+            raise ValueError("fresh_tree=True takes trees never searched; "
+                             "pass fresh_tree=False for carried trees")
+        room = tree.capacity  # the first simulation allocates no row
+    else:
+        room = tree.capacity - front
     if not 1 <= sims <= room:
         raise ValueError(f"sims must be in [1, {room}] (the free rows of the "
                          f"fullest tree), got {sims}")
@@ -181,3 +193,21 @@ def uniform_eval_fn(action_size: int, value_size: int,
         return pi, value
 
     return eval_fn
+
+
+def init_batched_trees(env, root_states, capacity: int,
+                       value_size: int) -> T.Tree:
+    """Fresh batch-major trees (search.py:26): the port's ``init_tree``."""
+    return T.init_tree(env, root_states, capacity, value_size)
+
+
+def raw_search(env, root_states, spec: SearchSpec, sims: int,
+               generator=None, capacity: Optional[int] = None,
+               draws: Optional[SearchDraws] = None) -> T.Tree:
+    """Model-free search from scratch on fresh batch-major trees of
+    ``capacity`` rows (default ``sims + 2``): a uniform policy and zero
+    values (search.py:447, MCTS.pyx:175-183)."""
+    tree = init_batched_trees(env, root_states, capacity or sims + 2,
+                              spec.value_size)
+    eval_fn = uniform_eval_fn(env.ACTION_SIZE, spec.value_size)
+    return search(env, tree, spec, eval_fn, sims, generator, draws=draws)

@@ -1,8 +1,9 @@
 """The batch-major search tree and the search constants — the port of the
 JAX package's ``mcts/tree.py`` (SearchSpec :74, the sentinels :55-71,
 ``Tree`` :101-170, ``init_tree`` :299, the general walk writes :538-601 and
-:725-830, ``reroot`` :961-1068, ``child_row`` / ``counts`` / ``probs``
-:348-1106).
+:725-830, ``reroot`` :961-1068, ``child_row`` :348 and the root readers
+``counts`` / ``root_child_stats`` / ``probs`` / ``best_action`` /
+``root_value`` :1075-1120).
 
 The port has two tree layouts, as the JAX package does:
 
@@ -128,28 +129,62 @@ def _game_minor_links(t):
     return t.parent, t.parent_action, t.n, t.q
 
 
-def counts(t) -> torch.Tensor:
-    """i32[B, A] root child visit counts of a Tree or a TreeT: each root
-    child's n added at its action, O(N·B) work where ``child_row`` builds
-    an [N, B, A] one-hot (1.25 G elements at hnefatafl's N = 253,
-    B = 512, A = 2420). A root has at most one child per action."""
-    parent, parent_action, n, _ = _game_minor_links(t)
+def _at_root(t, column: torch.Tensor, dtype) -> torch.Tensor:
+    """[B, A]: the ``column`` ([N, B]) entry of each root child added at
+    its action, 0 elsewhere — O(N·B) work where ``child_row`` builds an
+    [N, B, A] one-hot (1.25 G elements at hnefatafl's N = 253, B = 512,
+    A = 2420). A root has at most one child per action."""
+    parent, parent_action = _game_minor_links(t)[:2]
     at_root = parent[:-1] == ROOT  # [N-1, B]; the sink is never a child
     acts = torch.where(at_root, parent_action[:-1], 0).t().long()
-    visits = torch.where(at_root, n[:-1], 0).t()
-    out = torch.zeros((acts.shape[0], t.num_actions), dtype=torch.int32,
+    vals = torch.where(at_root, column[:-1], 0).t().to(dtype)
+    out = torch.zeros((acts.shape[0], t.num_actions), dtype=dtype,
                       device=acts.device)
-    return out.scatter_add_(1, acts, visits.to(torch.int32))
+    return out.scatter_add_(1, acts, vals)
+
+
+def counts(t) -> torch.Tensor:
+    """i32[B, A] root child visit counts of a Tree or a TreeT."""
+    return _at_root(t, _game_minor_links(t)[2], torch.int32)
+
+
+def root_child_stats(t):
+    """(visit counts i32[B, A], q f32[B, A]) of each root child of a Tree
+    or a TreeT, 0 where an action has no child — the evaluator's and the
+    GUI's readers (tree.py:1084; MCTS.pyx:297-344)."""
+    _, _, n, q = _game_minor_links(t)
+    return _at_root(t, n, torch.int32), _at_root(t, q, torch.float32)
+
+
+def best_action(t) -> torch.Tensor:
+    """i32[B]: each game's most visited root action (tree.py:1108)."""
+    return counts(t).argmax(dim=-1).to(torch.int32)
+
+
+def root_value(t, average: bool = False) -> torch.Tensor:
+    """f32[B]: the max (``average``: the mean over the root's valid
+    actions) of the visited root children's q, unvisited ones counting 0
+    (tree.py:1112, MCTS.pyx:329-344)."""
+    root_n, root_q = root_child_stats(t)
+    child_q = torch.where(root_n > 0, root_q, 0.0)
+    if not average:
+        return child_q.amax(dim=-1)
+    valid = t.valids[:, ROOT] if isinstance(t, Tree) else t.prior[:, ROOT] >= 0
+    return child_q.sum(dim=-1) / torch.clamp(valid.sum(dim=-1), min=1)
 
 
 def _renorm(p: torch.Tensor) -> torch.Tensor:
     return p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
 
 
-def probs(visit_counts: torch.Tensor, temp) -> torch.Tensor:
-    """Visit-count policy [B, A] with per-game temperature ``temp`` (a float
-    or f32[B]); temperature 0 gives the argmax one-hot (MCTS.pyx:308-327).
-    Computed in log space so a large 1/temp cannot overflow."""
+def probs(visit_counts, temp) -> torch.Tensor:
+    """Visit-count policy [B, A] of root visit counts i32[B, A] (or of a
+    Tree or TreeT, whose ``counts`` it reads) with per-game temperature
+    ``temp`` (a float or f32[B]); temperature 0 gives the argmax one-hot
+    (MCTS.pyx:308-327; tree.py:1090). Computed in log space so a large
+    1/temp cannot overflow."""
+    if not isinstance(visit_counts, torch.Tensor):
+        visit_counts = counts(visit_counts)
     c = visit_counts.to(torch.float32)
     B, A = c.shape
     total = torch.clamp(c.sum(dim=-1, keepdim=True), min=1.0)

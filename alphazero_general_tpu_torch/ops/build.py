@@ -9,7 +9,9 @@ name that hashes the sources and flags, so an edited source rebuilds and an
 unchanged one is loaded as it is.
 
 Nothing is built or loaded at import: the first kernel launch calls
-:func:`load_library`.
+:func:`load_library`. That first call may come from any thread (the
+evaluator searches on its own), so the build and the load run under one
+lock, once per process.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -51,6 +54,11 @@ SIGNATURES = {
     "azg_backup": _BACKUP,
     "azg_backup_rows": _BACKUP,
 }
+
+
+#: Held by the first build and load; later launches read ``_LIBRARY`` only.
+_LOCK = threading.Lock()
+_LIBRARY = None
 
 
 class BuildResult(NamedTuple):
@@ -86,9 +94,15 @@ def library_path() -> Path:
     return BUILD_DIR / f"libazg_kernels-{h.hexdigest()[:16]}.so"
 
 
-@functools.lru_cache(maxsize=None)
 def build_library() -> BuildResult:
-    """Compile every source in parallel and link them into one library."""
+    """Compile every source in parallel and link them into one library,
+    once per process, whichever thread asks first."""
+    with _LOCK:
+        return _build_library()
+
+
+@functools.lru_cache(maxsize=None)
+def _build_library() -> BuildResult:
     lib = library_path()
     if lib.exists():
         return BuildResult(lib, "(already built)", 0.0)
@@ -129,13 +143,17 @@ def current_stream(device_index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(device_index)
 
 
-@functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first use, with every entry point's C
     signature declared."""
-    lib = ctypes.CDLL(str(build_library().path))
-    for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    return lib
+    global _LIBRARY
+    if _LIBRARY is None:
+        with _LOCK:
+            if _LIBRARY is None:
+                lib = ctypes.CDLL(str(_build_library().path))
+                for name, (argtypes, restype) in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
+                _LIBRARY = lib
+    return _LIBRARY

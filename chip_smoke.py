@@ -109,7 +109,13 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    (N = 43), held after 40 and 199 (20 and 39) simulations and timed at
    the last snapshot as in phase 3.
 15. nim3 kernels: the same at nim3's (three players, ``value_size`` 4,
-   the default args' 100-simulation search at 256 games, N = 103).
+   the default args' 100-simulation search at 256 games, N = 103). Then
+   the batch-major kernels at three players: two nim3 reuse moves, and a
+   100-simulation search on the carried trees they leave, held at
+   ``NIM_REUSE_SNAPSHOTS`` and timed at the last. Then the game-minor
+   kernels at stratego's shapes (512 games, A = 1280, a random 64 x 8
+   ResNet; the preset's 100- and 20-simulation searches, N = 103 and 23),
+   held at ``STRATEGO_SNAPSHOTS``, untimed.
 16. chess self-play: 4 moves (fast, fast, fast, full) of the preset through
    ``make_move_fns``, with the launch checks of phase 5 and the full
    move's sparse pi records densified to 4672-wide rows.
@@ -125,6 +131,34 @@ Phases, each printed with its seconds; the first failure exits non-zero:
 21. othello coach: one Coach cycle of the othello preset through
    ``cli.train``'s ``main``, cut as ``OTHELLO_COACH_CUTS`` says, at the
    JAX default ``quant_selfplay=True``, with the checks of phase 8.
+
+22. player kernels: both batch-major kernels bit for bit against their
+   plain versions at one game (B = 1, as the players and the evaluator
+   search): on random trees of ``PLAYER_NODES`` rows with two and three
+   players; at snapshots of a connect4 MCTSPlayer search (a random
+   preset-width 128 x 8 ResNet, 200 simulations, N = 203) and of a chess
+   analysis (128 x 10, A = 4672, 100 simulations, N = 103), and after the
+   last simulation of connect4 analyses of 400 simulations over the
+   network (N = 403) and 2000 with the uniform evaluation (N = 2003),
+   each timed at its last snapshot as in phase 3 (cold, warm, host).
+23. pit: ``cli.pit.main`` with ``mcts:`` over a random preset-width
+   connect4 checkpoint against ``rawmcts``, then ``nativemcts`` (the C++
+   runtime, built with g++ into ``_build/``) against ``greedy``,
+   ``PIT_GAMES`` games each at ``PIT_SIMS`` simulations: every move legal,
+   the tallies adding up, every simulation through both batch-major
+   kernels and none through a game-minor kernel or a plain version; ms a
+   move and sims/s per player.
+24. analyze: ``cli.analyze.main`` over random preset-width checkpoints of
+   connect4 (400 simulations, N = 403) and chess (100 simulations), with
+   their launch counts; a background MCTSEvaluator on connect4 at
+   ``EVALUATOR_SIMS`` simulations (N = 2003) stopped by its time limit:
+   the published simulations rise tick by tick, the thread stops.
+25. tournaments: ``cli.roundrobin.main`` over two random connect4
+   checkpoints and the baseline, ``cli.pitmulti.main`` over their folder
+   against the baseline, then ``cli.clean.main`` on the run: the win
+   matrix adds up, the ratings are finite, the winrates lie in [0, 1] and
+   reach the metrics file, and every arena simulation ran through both
+   game-minor kernels.
 
 Before the card's line come the int8 phases' numbers
 ``{"int8_tower": {...}}``; the last two lines are the kernels line
@@ -213,9 +247,10 @@ TOL_FLOAT = 1e-6
 #: forces fewer than 8 games a descend block (N = 7300: 4), among them the
 #: production reuse tree (N = 403, whose batch-major rows are not 16-byte
 #: aligned), and batches that are a multiple of the block, ragged (1000 is
-#: not a multiple of 64) or too small for the 16-byte staging loads (7).
+#: not a multiple of 64), too small for the 16-byte staging loads (7) or
+#: one game, as the players search (1: seven empty lanes of a block).
 RANDOM_NODES = (2, 43, 403, 2048, 7300)
-RANDOM_BATCHES = (2048, 1000, 7)
+RANDOM_BATCHES = (2048, 1000, 7, 1)
 #: Block sizes of the backup timed in the kernel phase.
 BACKUP_THREADS = (32, 64, 128)
 #: Wrapper calls timed by the host clock alone, with no sync among them.
@@ -2045,6 +2080,12 @@ CHESS_SNAPSHOTS = {200: (40, 199), 40: (20, 39)}
 #: search; N = 103) and its snapshots, the last one timed.
 NIM_GAMES = 256
 NIM_SNAPSHOTS = (50, 99)
+#: Snapshots of the search on nim3's carried reuse trees at which the
+#: batch-major kernels are held at three players; the last one is timed.
+NIM_REUSE_SNAPSHOTS = (0, 50, 99)
+#: Snapshots of the stratego kernel holds by simulations (the preset's
+#: full and fast searches at 512 games, A = 1280; N = 103 and 23).
+STRATEGO_SNAPSHOTS = {100: (25, 50, 99), 20: (10, 19)}
 #: Games and simulations of the chess reference phase (a search on the
 #: card against the same search on the CPU), and its table's rows.
 CHESS_REFERENCE = dict(batch=32, sims=32, rows=1021)
@@ -2238,6 +2279,38 @@ def env_phases(device, smi: str) -> list:
     log(f"phase nim3 kernels: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    reuse_cfg = SelfPlayConfig.from_args(
+        env_args("nim3", reuse_tree=True), nim.NUM_PLAYERS, nim.HAS_DRAW)
+    openings = random_openings(nim, NIM_GAMES, 2, torch.Generator(
+        device).manual_seed(SEED + 12), device)
+    rp = selfplay_phase(nim, nim_net.model, reuse_cfg, NIM_GAMES,
+                        ("fast", "full"), device, openings=openings)
+    log(f"  nim3 reuse self-play (N = {reuse_cfg.capacity + 1}): launches "
+        f"{rp['launches']}; trees carried: {rp['carried']} of {NIM_GAMES}")
+    nim_rows_errs, nim_rows_timing = rows_kernel_phase(
+        nim, nim_net.make_eval_fn(), nim_cfg.spec, rp["carry"].trees,
+        nim_cfg.sims_full, NIM_REUSE_SNAPSHOTS, device)
+    for k in ("descend_rows", "backup_rows"):
+        log_timing(k, nim_rows_timing[k])
+    nim_rows_launches = rp["launches"]
+    log(f"phase nim3 reuse kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    strat = get_env("stratego")
+    s_args = env_args("stratego")
+    s_cfg = SelfPlayConfig.from_args(s_args, strat.NUM_PLAYERS,
+                                     strat.HAS_DRAW)
+    s_net = NNetWrapper(strat, s_args, device=device)
+    for sims in (s_cfg.sims_full, s_cfg.sims_fast):
+        log(f"  stratego: B={s_args.process_batch_size}, {sims} "
+            f"simulations, A = {strat.ACTION_SIZE}")
+        kernel_phase(strat, s_net.make_eval_fn(), s_cfg.spec,
+                     int(s_args.process_batch_size), sims,
+                     STRATEGO_SNAPSHOTS[sims], device, timed=False)
+    del s_net
+    log(f"phase stratego kernels: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     sp = selfplay_phase(env, net.model, cfg, batch, CYCLE, device)
     log(f"  chess self-play: {sp['sims_per_s']:,.0f} sims/s over "
         f"{len(sp['moves'])} moves ({sp['wall_ms_per_sim']:.3f} ms a "
@@ -2297,7 +2370,409 @@ def env_phases(device, smi: str) -> list:
                            sp["launches"][k], errs[k])
              for k in ("descend", "backup")]
             + [kernel_record(f"{k}@nim3", k, nim_timing[k], nim_launches[k],
-                             nim_errs[k]) for k in ("descend", "backup")])
+                             nim_errs[k]) for k in ("descend", "backup")]
+            + [kernel_record(f"{k}@nim3_reuse", k, nim_rows_timing[k],
+                             nim_rows_launches[k], nim_rows_errs[k])
+               for k in ("descend_rows", "backup_rows")])
+
+
+# --------------------------------------------------------------------------
+# Players and tools (phases 22-25)
+# --------------------------------------------------------------------------
+
+#: Tree sizes of the random trees of one game (B = 1) held in phase 22:
+#: about the trees of the players' searches (an MCTSPlayer move at the
+#: connect4 preset's 200 simulations, the analyze tool's 400, the
+#: evaluator's default 2000: sims + 3 rows each).
+PLAYER_NODES = (202, 402, 2002)
+#: Snapshots of phase 22's connect4 MCTSPlayer search (200 simulations,
+#: N = 203) and of its chess analysis (ANALYSIS_SIMS, N = 103); the last
+#: one of each is timed.
+PLAYER_SNAPSHOTS = (50, 199)
+ANALYSIS_SIMS = 100
+ANALYSIS_SNAPSHOTS = (50, 99)
+#: Phase 22's connect4 analyses, held and timed after their last
+#: simulation: the analyze tool's default 400 simulations over the network
+#: (N = 403) and the evaluator's default 2000 without one (N = 2003).
+ANALYSIS_C4_SIMS = (400, 2000)
+#: The pit phase: games a pairing, and the players' simulations (the
+#: connect4 preset's 200 cut to 50 for the script's time).
+PIT_GAMES = 2
+PIT_SIMS = 50
+#: The background evaluator of the analyze phase: connect4 at the
+#: evaluator's default max_sims (N = 2003), stopped by its time limit.
+EVALUATOR_SIMS = 2000
+EVALUATOR_SECONDS = 8.0
+#: The tournament phase: games a pairing and simulations a move.
+TOURNAMENT_GAMES = 16
+TOURNAMENT_SIMS = 16
+
+
+def player_kernel_phase(device, smi: str) -> tuple:
+    """Phase 22: both batch-major kernels bit for bit against their plain
+    versions at one game (B = 1): on random trees of ``PLAYER_NODES`` rows
+    (two and three players), at snapshots of a connect4 MCTSPlayer search
+    (a random preset-width ResNet, 200 simulations, N = 203) and of a chess
+    analysis (128 x 10, A = 4672, ``ANALYSIS_SIMS`` simulations, no root
+    noise), and after the last simulation of connect4 analyses of
+    ``ANALYSIS_C4_SIMS`` (N = 403 over the network, N = 2003 uniform);
+    each timed at its last snapshot (cold, warm, host). Each search runs
+    with the spec and evaluation of the MCTSPlayer or MCTSEvaluator that
+    the preset's args make. Returns {key: (timing, errors)}."""
+    for players in (2, 3):
+        spec = T.SearchSpec(num_players=players)
+        e = random_tree_phase(spec, device, nodes=PLAYER_NODES, batches=(1,))
+        check(max(e.values()) == 0.0, f"random trees at B=1: errors {e}")
+    from alphazero_general_tpu_torch.players.evaluator import MCTSEvaluator
+    from alphazero_general_tpu_torch.players.players import MCTSPlayer
+
+    # Each search has the spec and the evaluation of what grows its tree:
+    # the MCTSPlayer's (root noise and temperature from the preset's args)
+    # or the evaluator's (none; uniform without a network).
+    out = {}
+    for key, sims, snaps, player, with_net in (
+            [("connect4", SIMS_FULL, PLAYER_SNAPSHOTS, True, True)]
+            + [(f"connect4_n{sims + 3}", sims, (sims - 1,), False,
+                sims <= 400) for sims in ANALYSIS_C4_SIMS]
+            + [("chess", ANALYSIS_SIMS, ANALYSIS_SNAPSHOTS, False, True)]):
+        name = key.split("_")[0]
+        env = get_env(name)
+        args = preset_args(name, seed=SEED)
+        net = NNetWrapper(env, args, device=device) if with_net else None
+        if player:
+            searcher = MCTSPlayer(net, env, args, device=device)
+        else:
+            searcher = MCTSEvaluator(env, args, nn=net, max_sims=sims,
+                                     device=device)
+        spec, eval_fn = searcher.spec, searcher.eval_fn
+        roots = random_openings(env, 1, 6, torch.Generator(
+            device).manual_seed(SEED + 11), device)
+        tree = S.init_batched_trees(env, roots, sims + 2, spec.value_size)
+        log(f"  {name}: one game, {sims} simulations, N = {sims + 3}, "
+            f"A = {env.ACTION_SIZE}, "
+            f"{'the network' if with_net else 'uniform evaluation'}")
+        errs, timing = rows_kernel_phase(env, eval_fn, spec, tree, sims,
+                                         snaps, device)
+        for k in ("descend_rows", "backup_rows"):
+            log_timing(k, timing[k])
+        out[key] = (timing, errs)
+        del net, searcher, eval_fn
+    log(f"  card: {smi}")
+    return out
+
+
+def _pit(argv) -> tuple:
+    """``cli.pit.main(argv)`` with its output captured: (lines, the
+    per-player move clocks {spec: (moves, ms a move)}, the final tally)."""
+    import contextlib
+    import io
+
+    from alphazero_general_tpu_torch.cli import pit as cli_pit
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli_pit.main(argv) == 0, f"cli.pit {argv} failed")
+    lines = buf.getvalue().splitlines()
+    clocks, final = {}, None
+    for line in lines:
+        if line.startswith(("p1 ", "p2 ")) and "ms a move" in line:
+            tag, spec, rest = line.split(" ", 2)
+            moves, _, ms = rest.split(" ", 2)
+            clocks[tag] = (spec.rstrip(":"), int(moves), float(ms.split()[0]))
+        if line.startswith("final:"):
+            words = line.replace(",", "").split()
+            final = (int(words[2]), int(words[5]), int(words[7]))
+    games = [line for line in lines if line.startswith("game ")]
+    return games, clocks, final
+
+
+def pit_phase(device, root: str, smi: str) -> dict:
+    """Phase 23: ``cli.pit.main`` with an MCTSPlayer over a random
+    preset-width connect4 checkpoint (saved by ``save_checkpoint``)
+    against rawmcts, then nativemcts against greedy, ``PIT_GAMES`` games
+    each: every game ends (pit checks each move against the valid moves),
+    the tallies add up, and the launch counters show every simulation of
+    every search through both batch-major kernels, no game-minor kernel
+    and no plain version."""
+    env = get_env("connect4")
+    net = NNetWrapper(env, preset_args("connect4", seed=SEED), device=device)
+    ckpt = os.path.join(root, "iteration-0001")
+    net.save_checkpoint(root, "iteration-0001")
+    del net
+    dev = str(torch.device(device).type)
+    out = {}
+    for p1, p2 in ((f"mcts:{ckpt}", "rawmcts"), ("nativemcts", "greedy")):
+        argv = ["connect4", "--p1", p1, "--p2", p2, "--games",
+                str(PIT_GAMES), "--device", dev, "--set",
+                f"numMCTSSims={PIT_SIMS}"]
+        sync(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        with _PlainCounter(OD, "descend_plain") as pd, \
+                _PlainCounter(OB, "backup_plain_") as pb:
+            games, clocks, final = _pit(argv)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        check(final is not None and sum(final) == PIT_GAMES
+              and len(games) == PIT_GAMES,
+              f"pit {p1} vs {p2}: the tally {final} does not add up to "
+              f"{PIT_GAMES} games")
+        searched = sum(m for spec, m, _ in clocks.values()
+                       if spec.startswith(("mcts", "rawmcts")))
+        expect = dict.fromkeys(COUNTED, 0)
+        if dev == "cuda":
+            expect.update(descend_rows=searched * PIT_SIMS,
+                          backup_rows=searched * PIT_SIMS)
+            check(pd.calls == 0 and pb.calls == 0,
+                  f"pit: plain versions ran ({pd.calls}, {pb.calls})")
+        check(launches == expect,
+              f"pit {p1} vs {p2}: launches {launches} != expected {expect}")
+        for tag, (spec, moves, ms) in clocks.items():
+            sims = f", {PIT_SIMS * 1e3 / ms:,.0f} sims/s" if spec.startswith(
+                ("mcts", "rawmcts")) else ""
+            log(f"  {tag} {spec.split(':')[0]}: {moves} moves, {ms:.3f} ms "
+                f"a move{sims}")
+            out[spec.split(":")[0]] = dict(moves=moves, ms=ms)
+        out.setdefault("launches", launches)
+        log(f"  {p1.split(':')[0]} vs {p2}: final {final}; {'; '.join(games)}"
+            f"; launches {launches}; {wall:.1f} s; card: {smi}")
+    return out
+
+
+def analyze_phase(device, root: str, smi: str) -> dict:
+    """Phase 24: ``cli.analyze.main`` over random preset-width checkpoints
+    of connect4 (its default 400 simulations, N = 403) and chess
+    (``ANALYSIS_SIMS``), each with its launch counts; then a background
+    MCTSEvaluator on connect4 at ``EVALUATOR_SIMS`` simulations (N =
+    2003) stopped by its time limit: the published simulations rise tick
+    by tick, the last analysis is not running and the thread has
+    stopped."""
+    import contextlib
+    import io
+
+    from alphazero_general_tpu_torch.cli import analyze as cli_analyze
+    from alphazero_general_tpu_torch.players.evaluator import MCTSEvaluator
+
+    dev = str(torch.device(device).type)
+    out = {}
+    for name, sims, moves in (("connect4", None, "3,3,4"),
+                              ("chess", ANALYSIS_SIMS, "")):
+        env = get_env(name)
+        folder = os.path.join(root, name)
+        NNetWrapper(env, preset_args(name, seed=SEED),
+                    device=device).save_checkpoint(folder, "iteration-0001")
+        argv = [name, "--ckpt", os.path.join(folder, "iteration-0001"),
+                "--moves", moves, "--device", dev]
+        if sims:
+            argv += ["--sims", str(sims)]
+        sims = sims or 400
+        buf = io.StringIO()
+        sync(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            check(cli_analyze.main(argv) == 0, f"cli.analyze {argv} failed")
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        text = buf.getvalue()
+        check(f"sims: {sims}" in text and "1. action" in text,
+              f"analyze {name}: unexpected output {text[-300:]!r}")
+        expect = dict.fromkeys(COUNTED, 0)
+        if dev == "cuda":
+            expect.update(descend_rows=sims, backup_rows=sims)
+        check(launches == expect,
+              f"analyze {name}: launches {launches} != expected {expect}")
+        summary = [line.strip() for line in text.splitlines()
+                   if line.startswith(("value", "  1."))]
+        log(f"  analyze {name} ({sims} simulations, N = {sims + 3}): "
+            f"{' / '.join(summary)}; {wall:.2f} s with the checkpoint's "
+            f"load, {sims / wall:,.0f} sims/s; launches {launches}")
+        out[name] = dict(sims=sims, wall=wall, launches=launches)
+
+    env = get_env("connect4")
+    net = NNetWrapper(env, preset_args("connect4", seed=SEED), device=device)
+    state = env.init(1, device)
+    # Warm-up (the allocator, cuDNN) on an evaluator of its own, so that
+    # the timed one publishes from its first tick on.
+    MCTSEvaluator(env, net.args, nn=net, max_sims=16,
+                  device=device).analyze_blocking(state)
+    ev = MCTSEvaluator(env, net.args, nn=net, max_sims=EVALUATOR_SIMS,
+                       max_search_time=EVALUATOR_SECONDS, device=device)
+    sync(device)
+    reset_counts()
+    seen = []
+    t0 = time.perf_counter()
+    ev.start(state)
+    while ev.running:
+        a = ev.analysis
+        if not seen or a.sims != seen[-1]:
+            seen.append(a.sims)
+        time.sleep(0.05)
+    wall = time.perf_counter() - t0
+    final = ev.analysis
+    ev.stop()
+    launches = read_counts()
+    check(not final.running and not ev.running and ev._thread is None,
+          "the evaluator's thread did not stop")
+    check(final.sims > 0 and seen == sorted(set(seen)) and len(seen) >= 3,
+          f"the published simulations did not rise tick by tick: {seen}")
+    check(final.elapsed <= EVALUATOR_SECONDS + 5.0
+          or final.sims == EVALUATOR_SIMS,
+          f"the evaluator ran {final.elapsed:.1f} s")
+    if dev == "cuda":
+        check(launches["descend_rows"] == launches["backup_rows"]
+              == final.sims, f"evaluator: launches {launches} != "
+              f"{final.sims} simulations")
+    rate = final.sims / final.elapsed
+    log(f"  background evaluator, connect4, max_sims {EVALUATOR_SIMS} "
+        f"(N = {EVALUATOR_SIMS + 3}), {ev.sims_per_tick} a tick: "
+        f"{final.sims} simulations in {final.elapsed:.2f} s = {rate:,.0f} "
+        f"sims/s; {len(seen)} distinct publications; best "
+        f"{final.best_actions}, value {final.value:.3f}, depth "
+        f"{final.depth}; launches {launches}; card: {smi}")
+    out["evaluator"] = dict(sims=final.sims, seconds=final.elapsed,
+                            sims_per_s=rate, launches=launches)
+    return out
+
+
+def tournament_phase(device, root: str, smi: str) -> dict:
+    """Phase 25: ``cli.roundrobin.main`` over two random preset-width
+    connect4 checkpoints with the baseline, ``cli.pitmulti.main`` over the
+    folder of both against the baseline, then ``cli.clean.main`` on the
+    run: the win matrix adds up, the ratings are finite, the winrates lie
+    in [0, 1] and reach the metrics file, and the game-minor launch
+    counters equal the arenas' simulations."""
+    import contextlib
+    import io
+
+    from alphazero_general_tpu_torch.cli import clean as cli_clean
+    from alphazero_general_tpu_torch.cli import pitmulti as cli_pitmulti
+    from alphazero_general_tpu_torch.cli import roundrobin as cli_rr
+
+    env = get_env("connect4")
+    dev = str(torch.device(device).type)
+    folder = os.path.join(root, "checkpoint", "rr")
+    for i in (1, 2):
+        NNetWrapper(env, preset_args("connect4", seed=SEED + i),
+                    device=device).save_checkpoint(folder,
+                                                   f"iteration-000{i}")
+    sets = ["--set", f"numMCTSSims={TOURNAMENT_SIMS}"]
+    games = str(TOURNAMENT_GAMES)
+    result = os.path.join(root, "rr.json")
+    out = {}
+
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            _PlainCounter(OD, "descend_plain") as pd, \
+            _PlainCounter(OB, "backup_plain_") as pb:
+        check(cli_rr.main(["connect4", "--checkpoints",
+                           os.path.join(folder, "*.ckpt"),
+                           "--include-baseline", "--games", games,
+                           "--device", dev, "--out", result] + sets) == 0,
+              "cli.roundrobin failed")
+    out["roundrobin_s"] = time.perf_counter() - t0
+    launches = read_counts()
+    with open(result) as f:
+        rr = json.load(f)
+    wins = np.asarray(rr["wins"])
+    n = len(rr["names"])
+    check(n == 3 and rr["names"][-1] == "baseline",
+          f"roundrobin contestants {rr['names']}")
+    pair_sums = wins + wins.T
+    check(bool(np.allclose(pair_sums[~np.eye(n, dtype=bool)],
+                           TOURNAMENT_GAMES)),
+          f"roundrobin: a pairing's wins do not add up to {games}: {wins}")
+    check(bool(np.isfinite(rr["ratings"]).all()),
+          f"roundrobin: ratings {rr['ratings']}")
+    expect = dict.fromkeys(COUNTED, 0)
+    if dev == "cuda":
+        expect.update(descend=rr["rounds"] * (TOURNAMENT_SIMS - 1),
+                      backup=rr["rounds"] * TOURNAMENT_SIMS)
+        check(pd.calls == 0 and pb.calls == 0, "roundrobin: plain ran")
+    check(launches == expect,
+          f"roundrobin: launches {launches} != expected {expect}")
+    log(f"  roundrobin, {n} contestants, {games} games a pairing, "
+        f"{TOURNAMENT_SIMS} sims: wins {wins.tolist()}, ratings "
+        f"{[round(r, 1) for r in rr['ratings']]}, {rr['rounds']} rounds, "
+        f"{out['roundrobin_s']:.1f} s; launches {launches}")
+
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    runs = os.path.join(root, "runs")
+    with contextlib.redirect_stdout(buf):
+        check(cli_pitmulti.main(["connect4", "--run", "rr", "--checkpoint",
+                                 os.path.join(root, "checkpoint"), "--runs",
+                                 runs, "--every", "1", "--games", games,
+                                 "--device", dev] + sets) == 0,
+              "cli.pitmulti failed")
+    out["pitmulti_s"] = time.perf_counter() - t0
+    launches = read_counts()
+    rounds = [int(line.split(" in ")[1].split()[0])
+              for line in buf.getvalue().splitlines() if " rounds" in line]
+    metrics = _read_metrics(os.path.join(runs, "rr-pitmulti",
+                                         "metrics.jsonl"))
+    rates = metrics.get("win_rate/pit_multi", {})
+    check(len(rounds) == 2 and sorted(rates) == [1, 2]
+          and all(0.0 <= r <= 1.0 for r in rates.values()),
+          f"pitmulti: rounds {rounds}, winrates {rates}")
+    expect = dict.fromkeys(COUNTED, 0)
+    if dev == "cuda":
+        expect.update(descend=sum(rounds) * (TOURNAMENT_SIMS - 1),
+                      backup=sum(rounds) * TOURNAMENT_SIMS)
+    check(launches == expect,
+          f"pitmulti: launches {launches} != expected {expect}")
+    log(f"  pitmulti, 2 checkpoints vs the baseline, {games} games each: "
+        f"winrates {rates}, rounds {rounds}, {out['pitmulti_s']:.1f} s; "
+        f"launches {launches}; card: {smi}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli_clean.main(["rr", "--checkpoint",
+                              os.path.join(root, "checkpoint"), "--data",
+                              os.path.join(root, "data"), "--runs", runs,
+                              "--yes"]) == 0, "cli.clean failed")
+    check(not os.path.exists(folder), "cli.clean left the checkpoints")
+    log(f"  clean: {' / '.join(buf.getvalue().split(chr(10))[-3:-1])}")
+    return out
+
+
+def player_phases(device, smi: str) -> list:
+    """Phases 22-25; returns the batch-major kernels' records at the
+    players' shapes (B = 1)."""
+    t0 = time.perf_counter()
+    held = player_kernel_phase(device, smi)
+    log(f"phase player kernels: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        pit = pit_phase(device, os.path.join(root, "pit"), smi)
+        log(f"phase pit: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        analyze = analyze_phase(device, os.path.join(root, "analyze"), smi)
+        log(f"phase analyze: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tournament_phase(device, os.path.join(root, "tournament"), smi)
+        log(f"phase tournaments: {time.perf_counter() - t0:.1f} s")
+    # Each record's launches are its kernel's count over the run of the
+    # entry point whose search it holds: the pit (MCTSPlayer against
+    # rawmcts, at PIT_SIMS a move), the connect4 and chess analyses, and
+    # the background evaluator.
+    runs = {"connect4": pit["launches"],
+            f"connect4_n{ANALYSIS_C4_SIMS[0] + 3}":
+                analyze["connect4"]["launches"],
+            f"connect4_n{ANALYSIS_C4_SIMS[1] + 3}":
+                analyze["evaluator"]["launches"],
+            "chess": analyze["chess"]["launches"]}
+    check(sorted(runs) == sorted(held),
+          f"kernel records {sorted(held)} without a run {sorted(runs)}")
+    return [kernel_record(f"{k}@{name}_b1", k, timing[k], runs[name][k],
+                          errs[k])
+            for name, (timing, errs) in held.items()
+            for k in ("descend_rows", "backup_rows")]
 
 
 def main() -> int:
@@ -2316,12 +2791,14 @@ def main() -> int:
     records, c4_int8 = connect4_phases(device, smi)
     tafl_records, tafl_int8 = tafl_phases(device, smi)
     env_records = env_phases(device, smi)
+    player_records = player_phases(device, smi)
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
     log(json.dumps({"int8_tower": {"connect4": c4_int8,
                                    "hnefatafl": tafl_int8, "card": smi}}))
     log(smi)
-    log(json.dumps({"kernels": records + tafl_records + env_records}))
+    log(json.dumps({"kernels": records + tafl_records + env_records
+                    + player_records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": device_count}}))
     return 0

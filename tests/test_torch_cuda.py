@@ -1,9 +1,11 @@
 """The CUDA kernels on the card: each against its plain PyTorch version, in
-both tree layouts and at the tafl, chess and nim3 search shapes, whole
-searches (connect4, hnefatafl), a reuse move and arenas (connect4,
-brandubh) on the card against the same on the CPU, tafl and chess
-searches that never wait for the device, every env's rollouts on the card
-against the CPU's, and the wrappers' input checks.
+both tree layouts and at the tafl, chess, nim3 and stratego search
+shapes, the batch-major ones also at one game (the players' B = 1) and on
+three-player reuse trees, whole searches (connect4, hnefatafl), a reuse
+move, arenas (connect4, brandubh) and an MCTSPlayer move on the card
+against the same on the CPU, searches and an evaluator tick that never
+wait for the device, every env's rollouts on the card against the CPU's,
+and the wrappers' input checks.
 
 Every test here is marked ``gpu`` and skips, by a decision taken inside
 the test, where there is no CUDA device. This file imports neither JAX nor
@@ -659,12 +661,14 @@ def _spec_of(env):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,B,sims", [
-    ("chess", 256, 200), ("chess", 256, 40), ("nim3", 256, 100)])
+    ("chess", 256, 200), ("chess", 256, 40), ("nim3", 256, 100),
+    ("stratego", 512, 100), ("stratego", 512, 20)])
 def test_cuda_kernels_match_plain_on_env_searches(name, B, sims):
     """Both game-minor kernels bit for bit against their plain versions at
-    the chess preset's shapes (A = 4672, B = 256, N = 203 and 43) and at
-    nim3's (three players, value_size 4, N = 103), at a quarter, half and
-    all but one of the simulations of a search."""
+    the chess preset's shapes (A = 4672, B = 256, N = 203 and 43), at
+    nim3's (three players, value_size 4, N = 103) and at stratego's
+    (A = 1280, B = 512, N = 103 and 23), at a quarter, half and all but
+    one of the simulations of a search."""
     dev = _cuda()
     env = get_env(name)
     spec = _spec_of(env)
@@ -796,3 +800,164 @@ def test_cuda_int8_tower_matches_cpu():
         for a, w in qs[dev].conv_operands(obs.to(dev)):
             assert torch.equal(Q.conv3x3_int8(a, w, 32).cpu(),
                                Q.conv3x3_int8(a.cpu(), w.cpu(), 32))
+
+
+def _hold_rows(tree, spec):
+    """Both batch-major kernels bit for bit against their plain versions
+    on the columns of the batch-major ``tree`` (dict or Tree) and the
+    values in ``tree["value"]``."""
+    cols = [tree[c] for c in COLUMNS]
+    got = OD.descend_rows(*cols, spec)
+    torch.cuda.synchronize()
+    want = OD.descend_plain(*(c.t() for c in cols), spec.cpuct,
+                            spec.fpu_reduction)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+    args = [tree[k] for k in ("parent", "player", "leaf", "value",
+                              "max_depth")]
+    k_nqv = [tree[k].clone() for k in "nqv"]
+    p_nqv = [tree[k].clone() for k in "nqv"]
+    OB.backup_rows_(*args, *k_nqv, spec)
+    torch.cuda.synchronize()
+    OB.backup_plain_(args[0].t(), args[1].t(), *args[2:],
+                     *(x.t() for x in p_nqv), spec)
+    for g, w in zip(k_nqv, p_nqv):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("players", [2, 3])
+@pytest.mark.parametrize("N", [2, 202, 203, 402, 2002, 2003])
+def test_cuda_rows_kernels_match_plain_at_one_game(N, players):
+    """Both batch-major kernels bit for bit at B = 1, the players' and the
+    evaluator's batch (seven lanes of a descend block empty), on random
+    trees about their sizes (sims + 3 rows at 200, 400 and 2000
+    simulations), with two and three players."""
+    dev = _cuda()
+    columns = set(COLUMNS) | {"player"}
+    made = random_tree(N, 1, seed=N + 7 * players, num_players=players,
+                       has_draw=True)
+    tree = {k: torch.from_numpy(np.ascontiguousarray(x.T) if k in columns
+                                else x).to(dev) for k, x in made.items()}
+    _hold_rows(tree, SearchSpec(**dict(SPEC_KW, num_players=players)))
+
+
+def _rows_dict(tree, values):
+    eany = (tree.e > 0).any(dim=-1).to(torch.float32)
+    return dict(parent=tree.parent, parent_action=tree.parent_action,
+                n=tree.n, q=tree.q, v=tree.v, edge_prior=tree.edge_prior,
+                eany=eany, nba=tree.nba, nbp=tree.nbp, player=tree.player,
+                leaf=tree.leaf, value=values, max_depth=tree.max_depth)
+
+
+@pytest.mark.gpu
+def test_cuda_rows_kernels_match_plain_on_nim3_reuse_trees():
+    """Both batch-major kernels bit for bit at three players (value_size
+    4), at snapshots of a search on the carried trees of nim3 reuse moves
+    (a table evaluation, root noise and tie noise from a generator)."""
+    dev = _cuda()
+    env = get_env("nim3")
+    spec = SearchSpec(**dict(SPEC_KW, num_players=3))
+    eval_fn = _table_eval(env)
+    cfg = SP.SelfPlayConfig(sims_full=40, sims_fast=10, reuse_tree=True,
+                            spec=spec)
+    states = _tafl_openings(env, 256, dev, plies=2)
+    carry = SP.SelfPlayState(
+        env_state=states, temps=torch.ones(256, device=dev),
+        games_played=torch.zeros((), dtype=torch.int32, device=dev),
+        move_count=torch.zeros((), dtype=torch.int32, device=dev),
+        trees=T.init_tree(env, states, cfg.capacity, 4))
+    gen = torch.Generator(dev).manual_seed(3)
+    for sims in (10, 40):
+        carry, _ = SP.move_step(env, cfg, eval_fn, carry, sims,
+                                generator=gen)
+    tree = carry.trees
+    assert (tree.next_free > 1).any()
+    checked = 0
+    for k in range(cfg.sims_full):
+        if k in (0, 20, cfg.sims_full - 1):
+            walk = OD.descend_batched(tree, spec)
+            T.apply_walk(env, tree, *walk)
+            pi, value = eval_fn(T.leaf_observation(env, tree))
+            values = T.resolve_value(tree, value)
+            T.install_prior(tree, pi, spec, k == 0, generator=gen)
+            _hold_rows(_rows_dict(tree, values), spec)
+            OB.backup_batched(tree, values, spec)
+            checked += 1
+        else:
+            S.simulate_step(env, tree, spec, eval_fn, k == 0, generator=gen)
+    assert checked == 3
+
+
+class _TableNet:
+    """A stand-in network for the players: ``process`` is a table lookup,
+    so that the card and the CPU get bit-identical priors and values."""
+
+    def __init__(self, env, args, device, process=_eval_fn):
+        self.env, self.args = env, args
+        self.device = torch.device(device)
+        self.process = process
+
+
+@pytest.mark.gpu
+def test_cuda_mcts_player_move_matches_cpu():
+    """An MCTSPlayer move on the card against the same move on the CPU
+    (the same root noise and tie noise injected): action, visit counts and
+    depth equal, the root value and the root children's q within 1e-6;
+    every simulation through both batch-major kernels."""
+    from alphazero_general_tpu_torch.players.players import MCTSPlayer
+    from alphazero_general_tpu_torch.utils import get_args
+
+    dev = _cuda()
+    env = get_env("connect4")
+    args = get_args(numMCTSSims=64, startTemp=1.0)
+    state = _openings(1, "cpu")
+    rng = np.random.default_rng(4)
+    draws = S.SearchDraws(
+        tie=torch.from_numpy(rng.random((64, 1, 7)).astype(np.float32)),
+        gammas=torch.from_numpy(rng.gamma(1.5, size=(1, 7)).astype(
+            np.float32)))
+    want = MCTSPlayer(_TableNet(env, args, "cpu"), env, args, seed=2)
+    a_cpu = want.play(state, draws=draws)
+    got = MCTSPlayer(_TableNet(env, args, dev), env, args, seed=2)
+    before = (OD.descend_rows.launches, OB.backup_rows_.launches)
+    on_dev = S.SearchDraws(tie=draws.tie.to(dev), gammas=draws.gammas.to(dev))
+    assert got.play(state, draws=on_dev) == a_cpu
+    assert (OD.descend_rows.launches - before[0],
+            OB.backup_rows_.launches - before[1]) == (64, 64)
+    assert got.last_depth == want.last_depth
+    assert abs(got.last_value - want.last_value) <= 1e-6
+    c_got, q_got = T.root_child_stats(got.last_tree)
+    c_want, q_want = T.root_child_stats(want.last_tree)
+    assert torch.equal(c_got.cpu(), c_want)
+    assert torch.allclose(q_got.cpu(), q_want, rtol=0, atol=1e-6)
+    assert torch.equal(got.last_tree.n.cpu(), want.last_tree.n)
+
+
+@pytest.mark.gpu
+def test_cuda_evaluator_tick_never_waits_for_the_device():
+    """An evaluator tick (8 simulations of a network's evaluation on a
+    tree of max_sims + 2 rows) under CUDA's sync debug mode: nothing in it
+    waits for the device; the host reads the tree in ``_publish`` only."""
+    from alphazero_general_tpu_torch.players.evaluator import MCTSEvaluator
+    from alphazero_general_tpu_torch.utils import get_args
+
+    dev = _cuda()
+    env = get_env("connect4")
+    args = get_args()
+    # The table stays on the card: _eval_fn copies it there each call.
+    ev = MCTSEvaluator(env, args, nn=_TableNet(env, args, dev,
+                                               _table_eval(env)),
+                       max_sims=2000, device=dev)
+    state = env.init(1, dev)
+    ev.analyze_blocking(state, sims=16)  # warm-up: tables, allocator
+    tree = S.init_batched_trees(env, state, ev.max_sims + 2, 3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ev._tick(tree, 0, ev.sims_per_tick, S.SearchDraws())
+        ev._tick(tree, ev.sims_per_tick, ev.sims_per_tick, S.SearchDraws())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ev._publish(tree, 16, 0.0, running=False) >= 1
+    assert ev.analysis.sims == 16 and sum(ev.analysis.policy) == 1.0

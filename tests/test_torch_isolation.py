@@ -3,6 +3,7 @@ JAX package, chip_smoke.py refuses to run without a GPU, and its phases
 rehearse on the CPU at a tiny size."""
 
 import ast
+import json
 import os
 import pathlib
 import shutil
@@ -306,7 +307,9 @@ def test_chip_smoke_tafl_phases_rehearse_on_cpu(tmp_path, capsys,
 def test_chip_smoke_env_phases_rehearse_on_cpu(tmp_path, capsys,
                                                monkeypatch):
     """The phases of the other envs (rollouts of every new env, the
-    kernels at chess and nim3 search snapshots, chess self-play with its
+    kernels at chess and nim3 search snapshots, the batch-major kernels on
+    nim3 reuse trees, the kernels at stratego's shapes, chess self-play
+    with its
     breakdown and reference search, one fast and one full move of every
     other env, the three-model nim3 arena, and the othello Coach through
     cli.train.main with its checks) at a tiny size on the CPU, and their
@@ -331,6 +334,8 @@ def test_chip_smoke_env_phases_rehearse_on_cpu(tmp_path, capsys,
     monkeypatch.setattr(C, "CHESS_SNAPSHOTS", {12: (3, 11), 4: (2, 3)})
     monkeypatch.setattr(C, "NIM_GAMES", 8)
     monkeypatch.setattr(C, "NIM_SNAPSHOTS", (3, 11))
+    monkeypatch.setattr(C, "NIM_REUSE_SNAPSHOTS", (0, 5, 11))
+    monkeypatch.setattr(C, "STRATEGO_SNAPSHOTS", {12: (3, 11), 4: (2, 3)})
     monkeypatch.setattr(C, "CHESS_REFERENCE", dict(batch=4, sims=6,
                                                     rows=101))
     monkeypatch.setattr(C, "NIM_ARENA_GAMES", 6)
@@ -342,8 +347,9 @@ def test_chip_smoke_env_phases_rehearse_on_cpu(tmp_path, capsys,
     records = C.env_phases("cpu", "cpu")
     out = capsys.readouterr().out
     assert [r["name"] for r in records] == [
-        "descend@chess", "backup@chess", "descend@nim3", "backup@nim3"]
-    assert [(r["N"], r["B"]) for r in records] == [(15, 8)] * 4
+        "descend@chess", "backup@chess", "descend@nim3", "backup@nim3",
+        "descend_rows@nim3_reuse", "backup_rows@nim3_reuse"]
+    assert [(r["N"], r["B"]) for r in records] == [(15, 8)] * 4 + [(27, 8)] * 2
     assert all(r["max_abs_err"] == 0.0 and r["launches"] == 0
                and r["bound_ms"] > 0 for r in records)
     for name in C.ROLLOUT_ENVS:
@@ -352,8 +358,80 @@ def test_chip_smoke_env_phases_rehearse_on_cpu(tmp_path, capsys,
         assert f"  {name} self-play:" in out
     assert "chess self-play" in out and "(stage expand)" in out
     assert "nim3 three-model arena: 6 games" in out
+    assert "stratego: B=8, 12 simulations, A = 1280" in out
+    assert "nim3 reuse self-play (N = 27)" in out
     assert "othello coach cycle through cli.train.main" in out
     assert "arena past" in out and "arena baseline" not in out
+
+
+def test_chip_smoke_player_phases_rehearse_on_cpu(tmp_path, capsys,
+                                                  monkeypatch):
+    """The player phases (the batch-major kernels at one game on random
+    trees and at MCTSPlayer and chess analysis snapshots; pit, analyze and
+    the evaluator's thread; roundrobin, pitmulti and clean through their
+    ``main``) at a tiny size on the CPU, where no kernel launches, and
+    their eight kernel records at B = 1."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke as C
+    finally:
+        sys.path.remove(str(REPO))
+    tiny = dict(num_channels=8, depth=1, value_head_channels=2,
+                policy_head_channels=2, value_dense_layers=[16],
+                policy_dense_layers=[16])
+    preset = C.preset_args
+    monkeypatch.setattr(C, "preset_args",
+                        lambda name, **kw: preset(name, **{**tiny, **kw}))
+    for name, value in dict(
+            PLAYER_NODES=(20, 41), SIMS_FULL=12, PLAYER_SNAPSHOTS=(3, 11),
+            ANALYSIS_SIMS=10, ANALYSIS_SNAPSHOTS=(4, 9),
+            ANALYSIS_C4_SIMS=(16, 30), PIT_SIMS=6,
+            EVALUATOR_SIMS=400, EVALUATOR_SECONDS=1.0, TOURNAMENT_GAMES=4,
+            TOURNAMENT_SIMS=4, HOST_CALLS=2).items():
+        monkeypatch.setattr(C, name, value)
+    monkeypatch.setattr(tempfile, "TemporaryDirectory",
+                        lambda: _Dir(tmp_path))
+    records = C.player_phases("cpu", "cpu")
+    out = capsys.readouterr().out
+    assert [r["name"] for r in records] == [
+        f"{k}@{name}_b1" for name in ("connect4", "connect4_n19",
+                                      "connect4_n33", "chess")
+        for k in ("descend_rows", "backup_rows")]
+    assert [r["N"] for r in records] == [15, 15, 19, 19, 33, 33, 13, 13]
+    assert all(r["B"] == 1 for r in records)
+    assert all(r["max_abs_err"] == 0.0 and r["launches"] == 0
+               and r["bound_ms"] > 0 for r in records)
+    assert "p1 mcts: " in out and "sims/s" in out and "p1 nativemcts" in out
+    assert "analyze chess (10 simulations, N = 13)" in out
+    assert "background evaluator, connect4, max_sims 400" in out
+    assert "roundrobin, 3 contestants" in out and "pitmulti, 2" in out
+    assert not (tmp_path / "tournament" / "checkpoint" / "rr").exists()
+
+
+def test_chip_smoke_main_runs_every_phase_in_order(monkeypatch, capsys):
+    """``main`` runs every group of phases, in order, and joins their
+    kernel records into the kernels line before the ok line."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke as C
+    finally:
+        sys.path.remove(str(REPO))
+    ran = []
+    monkeypatch.setattr(C, "device_phase", lambda: ("card", 1, "card, 1 W"))
+    monkeypatch.setattr(C, "build_phase", lambda: None)
+    monkeypatch.setattr(C, "launch_floor_ms", lambda device: 0.001)
+    groups = ("connect4", "tafl", "env", "player")
+    for group in groups:
+        record = [{"name": group}]
+        result = ((record, {}) if group in ("connect4", "tafl") else record)
+        monkeypatch.setattr(C, f"{group}_phases",
+                            lambda d, smi, g=group, r=result:
+                            ran.append(g) or r)
+    assert C.main() == 0 and ran == list(groups)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert '"ok": true' in lines[-1]
+    assert [r["name"] for r in json.loads(lines[-2])["kernels"]] == list(
+        groups)
 
 
 class _Dir:

@@ -26,9 +26,9 @@ from alphazero_general_tpu.ops.backup import backup_batched as j_backup
 from alphazero_general_tpu.ops.descend import descend_batched as j_descend
 from alphazero_general_tpu.utils.config import get_args as j_get_args
 from alphazero_general_tpu_torch.envs import get_env
-from alphazero_general_tpu_torch.envs.core import state_items
 from alphazero_general_tpu_torch.mcts import search as S
 from alphazero_general_tpu_torch.mcts import tree as T
+from alphazero_general_tpu_torch.mcts import tree_t as TT
 from alphazero_general_tpu_torch.ops import backup as OB
 from alphazero_general_tpu_torch.ops import descend as OD
 from alphazero_general_tpu_torch.selfplay import selfplay as SP
@@ -296,79 +296,125 @@ def test_search_rejects_mixed_trees_and_overfull_trees(carried):
     tree = port_tree(carried)
     _, t_eval = table_eval_fns()
     spec = T.SearchSpec(**SPEC_KW)
+    # fresh_tree=True takes trees never searched (a TreeT, or a fresh Tree);
+    # a TreeT is never carried.
+    with pytest.raises(ValueError, match="never searched"):
+        S.search(ENV, tree, spec, t_eval, 4)
+    fresh_t = TT.init_tree_t(ENV, T.gather_states(ENV, tree, tree.leaf * 0),
+                             CAPACITY, V)
     with pytest.raises(TypeError):
-        S.search(ENV, tree, spec, t_eval, 4)  # fresh_tree=True takes a TreeT
+        S.search(ENV, fresh_t, spec, t_eval, 4, fresh_tree=False)
     room = CAPACITY - int(tree.next_free.max())
     with pytest.raises(ValueError, match="free rows"):
         S.search(ENV, tree, spec, t_eval, room + 1, fresh_tree=False)
 
 
-def test_reuse_move_steps_match_jax():
-    """Eight reuse moves (fast, fast, fast, full, twice) from positions
-    near their end, on trees small enough that every restart happens: a
-    finished game, a kept subtree that leaves no room for a full search
-    (overflow), and one past the reset threshold. Policies within 1e-6;
+#: The reuse-move configs: connect4 (the eight-move run with every kind of
+#: tree restart, from positions near their end), and tictactoe, nim3 (3
+#: players), othello, gobang, othello with 2 stacked observations and
+#: tictactoe with 3: (games, max plies of the random openings, moves).
+REUSE_MOVE_ENVS = {"connect4": (B, 40, 8), "tictactoe": (8, 4, 12),
+                   "nim3": (8, 4, 12), "othello": (8, 40, 12),
+                   "gobang": (8, 60, 12), "othello_x2": (8, 40, 12),
+                   "tictactoe_x3": (8, 4, 12)}
+
+
+def _reuse_env(name):
+    """(port env, JAX env) of ``name``, ``<env>_x<k>`` with k stacked
+    observations."""
+    from alphazero_general_tpu.envs import get_env as j_get_env
+    from alphazero_general_tpu.envs.stacked import make_stacked_env as j_stack
+    from alphazero_general_tpu_torch.envs.stacked import make_stacked_env
+
+    base, _, k = name.partition("_x")
+    env, jenv = get_env(base), j_get_env(base)
+    if k:
+        return make_stacked_env(env, int(k)), j_stack(jenv, int(k))
+    return env, jenv
+
+
+@pytest.mark.parametrize("name", list(REUSE_MOVE_ENVS))
+def test_reuse_move_steps_match_jax(name):
+    """Reuse moves (fast, fast, fast, full, ...) on trees small enough that
+    trees restart: connect4 from positions near their end, where every
+    restart happens (a finished game, a kept subtree that leaves no room
+    for a full search (overflow), one past the reset threshold); the other
+    envs from random openings, carrying trees. Policies within 1e-6;
     actions, states, next_free, and the parent links and visits of the
     carried trees equal."""
+    from test_torch_envs import (jax_items, port_items, random_items,
+                                 table_eval_fns as env_table_eval_fns,
+                                 to_jax, to_torch)
+
+    env, jenv = _reuse_env(name)
+    games, max_plies, moves = REUSE_MOVE_ENVS[name]
+    A_, V_ = env.ACTION_SIZE, env.NUM_PLAYERS + int(env.HAS_DRAW)
     sims_full, sims_fast, capacity, threshold = SIMS, 4, 18, 3
-    j_eval, t_eval = table_eval_fns(seed=2)
-    pos = random_positions(B, seed=21, max_plies=40)
+    if name == "connect4":
+        j_eval, t_eval = table_eval_fns(seed=2)
+        pos = random_positions(games, seed=21, max_plies=max_plies)
+        j_states, t_states = to_jax_states(pos), to_torch_states(pos)
+    else:
+        j_eval, t_eval = env_table_eval_fns(env, seed=2)
+        items = random_items(env, games, seed=21, max_plies=max_plies)
+        j_states, t_states = to_jax(jenv, items), to_torch(env, items)
+    spec_kw = dict(SPEC_KW, num_players=env.NUM_PLAYERS,
+                   has_draw=env.HAS_DRAW)
     kw = dict(sims_full=sims_full, sims_fast=sims_fast, reuse_tree=True,
               tree_capacity=capacity, reset_threshold=threshold)
     j_cfg = JSP.SelfPlayConfig(**kw, walk_impl="pallas_interpret",
-                               spec=JT.SearchSpec(**SPEC_KW))
-    t_cfg = SP.SelfPlayConfig(**kw, spec=T.SearchSpec(**SPEC_KW))
+                               spec=JT.SearchSpec(**spec_kw))
+    t_cfg = SP.SelfPlayConfig(**kw, spec=T.SearchSpec(**spec_kw))
 
     @functools.partial(jax.jit, static_argnames=("sims", "fast"))
     def j_move(carry, rng, sims, fast):
-        return JSP.move_step(JConnect4, j_cfg, j_eval, carry, rng,
+        return JSP.move_step(jenv, j_cfg, j_eval, carry, rng,
                              sims_override=sims, fast_flag=fast)
 
-    temps = np.where(np.arange(B) % 2 == 0, 1.0, 0.5).astype(np.float32)
-    j_states = to_jax_states(pos)
+    temps = np.where(np.arange(games) % 2 == 0, 1.0, 0.5).astype(np.float32)
     j_carry = JSP.SelfPlayState(
         env_state=j_states, temps=jnp.asarray(temps),
         games_played=jnp.int32(0), move_count=jnp.int32(0),
-        trees=JS.init_batched_trees(JConnect4, j_states, capacity, V))
-    t_states = to_torch_states(pos)
+        trees=JS.init_batched_trees(jenv, j_states, capacity, V_))
     t_carry = SP.SelfPlayState(
         env_state=t_states, temps=torch.from_numpy(temps.copy()),
         games_played=torch.zeros((), dtype=torch.int32),
         move_count=torch.zeros((), dtype=torch.int32),
-        trees=T.init_tree(ENV, t_states, capacity, V))
+        trees=T.init_tree(env, t_states, capacity, V_))
     causes = {"done": 0, "overflow": 0, "threshold": 0, "carried": 0}
-    for k, kind in enumerate(("fast", "fast", "fast", "full") * 2):
+    for k, kind in enumerate((("fast", "fast", "fast", "full") * 3)[:moves]):
         sims = sims_fast if kind == "fast" else sims_full
         rng = jax.random.PRNGKey(200 + k)
         j_carry, j_rec = j_move(j_carry, rng, sims, kind == "fast")
         r_action = jax.random.split(rng, 4)[2]
-        gumbel = np.array(jax.random.gumbel(r_action, (B, A), jnp.float32))
+        gumbel = np.array(jax.random.gumbel(r_action, (games, A_),
+                                            jnp.float32))
         searched = t_carry.trees  # move_step searches the carried trees
-        t_carry, t_rec = SP.move_step(ENV, t_cfg, t_eval, t_carry, sims,
+        t_carry, t_rec = SP.move_step(env, t_cfg, t_eval, t_carry, sims,
                                       fast=kind == "fast",
                                       gumbel=torch.from_numpy(gumbel))
 
         np.testing.assert_allclose(t_rec.pi.numpy(), np.asarray(j_rec.pi),
                                    rtol=1e-6, atol=1e-6)
-        for name in ("action", "done", "win_state", "player"):
+        for f in ("action", "done", "win_state", "player"):
             np.testing.assert_array_equal(
-                getattr(t_rec, name).numpy(),
-                np.asarray(getattr(j_rec, name)), err_msg=name)
-        for name, x in state_items(t_carry.env_state).items():
-            np.testing.assert_array_equal(
-                x.numpy(), np.asarray(getattr(j_carry.env_state, name)),
-                err_msg=name)
-        got, want = t_carry.trees, port_tree(j_carry.trees)
+                getattr(t_rec, f).numpy(), np.asarray(getattr(j_rec, f)),
+                err_msg=f)
+        t_items = port_items(t_carry.env_state)
+        j_items = jax_items(jenv, j_carry.env_state, t_items)
+        for f in t_items:
+            np.testing.assert_array_equal(t_items[f], j_items[f], err_msg=f)
+        got = t_carry.trees
         np.testing.assert_array_equal(got.next_free.numpy(),
-                                      want.next_free.numpy())
-        for name in ("parent", "n"):
+                                      np.asarray(j_carry.trees.next_free))
+        for f in ("parent", "n"):
             np.testing.assert_array_equal(
-                getattr(got, name)[:, :-1].numpy(),
-                getattr(want, name)[:, :-1].numpy(), err_msg=name)
+                getattr(got, f)[:, :-1].numpy(),
+                np.asarray(getattr(j_carry.trees, f))[:, :-1], err_msg=f)
         assert (t_rec.root_visits >= sims).all()
 
         # Why each game's next tree is what it is.
-        kept = T.reroot(ENV, searched, t_rec.action).next_free
+        kept = T.reroot(env, searched, t_rec.action).next_free
         reset = t_rec.tree_reset
         overflow = kept + sims_full + 1 > capacity
         assert torch.equal(reset, t_rec.done | overflow | (kept > threshold))
@@ -377,7 +423,10 @@ def test_reuse_move_steps_match_jax():
         causes["threshold"] += int(((kept > threshold) & ~overflow
                                     & ~t_rec.done).sum())
         causes["carried"] += int((~reset & (got.next_free > 1)).sum())
-    assert min(causes.values()) > 0, causes
+    if name == "connect4":
+        assert min(causes.values()) > 0, causes
+    else:
+        assert causes["carried"] > 0 and causes["threshold"] > 0, causes
 
 
 def _custom_temp(cur_temp, turns, max_turns):
