@@ -1,9 +1,10 @@
 """The batch-major search tree and the search constants — the port of the
 JAX package's ``mcts/tree.py`` (SearchSpec :74, the sentinels :55-71,
 ``Tree`` :101-170, ``init_tree`` :299, the general walk writes :538-601 and
-:725-830, ``reroot`` :961-1068, ``child_row`` :348 and the root readers
-``counts`` / ``root_child_stats`` / ``probs`` / ``best_action`` /
-``root_value`` :1075-1120).
+:725-830, the row slices of the segmented search :898-960, ``reroot``
+:961-1068, ``child_row`` :348 and the root readers ``counts`` /
+``root_child_stats`` / ``probs`` / ``best_action`` / ``root_value``
+:1075-1120).
 
 The port has two tree layouts, as the JAX package does:
 
@@ -19,9 +20,9 @@ The port has two tree layouts, as the JAX package does:
 Row ``N-1`` of either is the write sink: masked writes land there, and no
 walk ever treats it as a child. The functions here update a ``Tree`` IN
 PLACE (the JAX versions return new trees), except ``init_tree``,
-``reroot`` and ``select_games``, which build new ones. Functions that read
-columns in ``[N, B]`` (``child_row``) take a batch-major tree as
-transposed views.
+``reroot``, ``select_games`` and ``slice_batched_rows``, which build new
+ones. Functions that read columns in ``[N, B]`` (``child_row``) take a
+batch-major tree as transposed views.
 """
 
 from __future__ import annotations
@@ -379,6 +380,45 @@ def select_games(mask: torch.Tensor, a: Tree, b: Tree) -> Tree:
         node_state={k: pick(x, b.node_state[k])
                     for k, x in a.node_state.items()},
         **{k: pick(getattr(a, k), getattr(b, k)) for k in TREE_TENSORS})
+
+
+def slice_batched_rows(tree: Tree, n: int) -> Tree:
+    """A copy of the first ``n`` node rows of every game of ``tree``
+    (tree.py:898 slice_batched_rows), whose row ``n-1`` is the slice's
+    sink; the per-game vectors (``next_free``, ``depth``, ``max_depth``,
+    ``leaf``) are the same tensors.
+
+    A ``[B, n]`` slice of a ``[B, N]`` column is not contiguous, and the
+    kernels take contiguous rows, so the slice is a contiguous copy (a few
+    small copies a segment at the players' one game). Simulation k of a
+    fresh search allocates at most row k, so simulations in [lo, hi) may
+    run on a slice of ``n >= hi + 1`` rows (the growing arena of
+    ``search._segment_plan``); their masked writes land on the slice's
+    sink, which :func:`merge_batched_rows` leaves behind.
+    """
+
+    def cut(x):
+        return x[:, :n].clone(memory_format=torch.contiguous_format)
+
+    return dataclasses.replace(
+        tree, node_state={k: cut(x) for k, x in tree.node_state.items()},
+        **{k: cut(getattr(tree, k)) for k in TREE_TENSORS
+           if getattr(tree, k).dim() > 1})
+
+
+def merge_batched_rows(full: Tree, part: Tree) -> None:
+    """Copy the rows of a searched slice below its sink back into ``full``
+    (tree.py:929 merge_batched_rows). The slice's sink row holds the junk
+    of masked writes; the full tree's row there stays as it was, pristine,
+    where the JAX package restores the slice's parent links to UNVISITED
+    before merging the whole slice."""
+    n = part.parent.shape[1] - 1
+    for k, x in full.node_state.items():
+        x[:, :n] = part.node_state[k][:, :n]
+    for k in TREE_TENSORS:
+        x = getattr(full, k)
+        if x.dim() > 1:
+            x[:, :n] = getattr(part, k)[:, :n]
 
 
 def _games(tree: Tree) -> torch.Tensor:

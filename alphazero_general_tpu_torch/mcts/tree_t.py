@@ -1,6 +1,6 @@
 """The game-minor search tree — the port of
-alphazero_general_tpu/mcts/tree_t.py (TreeT :44-90 and the fresh-tree write
-path :285-542).
+alphazero_general_tpu/mcts/tree_t.py (TreeT :44-90, the row slices of the
+segmented search :207-264 and the fresh-tree write path :285-542).
 
 Every tree column is ``[N, B]``: the game batch rides the LAST axis, so
 thread ``b`` of a kernel reads column ``b`` of each row and a warp's loads
@@ -25,7 +25,10 @@ terminal node writes junk at that row instead, and its ``parent`` entry
 there stays UNVISITED, so nothing can reach the junk.
 
 The functions here update the TreeT IN PLACE (the JAX versions return new
-trees), which spares a copy of every column per simulation.
+trees), which spares a copy of every column per simulation. Every write of
+a search is in place (an indexed assignment, ``copy_``, ``fill_``, an
+``out=`` or the kernels' writes), never a reassignment of a field, so a
+search may run on the views of ``slice_rows_t`` and needs no merge.
 
 Differences from the JAX TreeT, on purpose:
 
@@ -130,6 +133,31 @@ def init_tree_t(env, root_states, capacity: int, value_size: int) -> TreeT:
     )
 
 
+def slice_rows_t(tt: TreeT, n: int) -> TreeT:
+    """The first ``n`` node rows of ``tt`` as views (tree_t.py:207
+    slice_rows_t): row ``n-1`` is the slice's sink, and the per-game
+    vectors (``next_free``, ``depth``, ``max_depth``, ``leaf``) are the
+    same tensors.
+
+    A search writes through the views (see the module docstring), so the
+    full tree holds its results with no merge (the JAX package's
+    ``merge_rows_t`` copies the slice back). Simulation k of a fresh
+    search writes row k and walks rows below it, so simulations in [lo,
+    hi) may run on a slice of ``n >= hi + 1`` rows: they never write its
+    sink, and the walk and backup cost O(n) instead of O(N) (the growing
+    arena of ``search._segment_plan``). Each column ``[n, B]``, ``e``
+    ``[n*V, B]`` and ``node_state`` ``[n, S, B]`` is contiguous; ``prior``
+    ``[B, n, A]`` is strided, and only indexed reads and writes touch it.
+    """
+    V = tt.value_size
+    cols = ("parent", "parent_action", "n", "q", "v", "eany", "player",
+            "edge_prior", "nba", "nbp")
+    return dataclasses.replace(
+        tt, node_state={k: x[:n] for k, x in tt.node_state.items()},
+        prior=tt.prior[:, :n], e=tt.e[:n * V],
+        **{k: getattr(tt, k)[:n] for k in cols})
+
+
 def gather_states(env, tt: TreeT, idx: torch.Tensor):
     """The env state stored at node ``idx[b]`` of every game b
     (tree_t.py:285 _gather_states), as a batched game-major state."""
@@ -182,13 +210,21 @@ def expand_root_t(env, tt: TreeT):
 
 
 def apply_walk_observe_t(env, tt: TreeT, node, action, child, depth,
-                         skip_walk, p_sel, slot: int):
+                         skip_walk, p_sel, slot: int,
+                         multi_leaf: bool = False):
     """Allocate and expand the walk's leaf at the uniform row ``slot``
-    (tree_t.py:382, single-leaf rounds). Returns (obs, e_leaf, leaf_valids).
+    (tree_t.py:382). Returns (obs, e_leaf, leaf_valids).
 
     The leaf's terminal vector is read back from the STORED e row, not from
     the stepped state: when a walk stops at an already-terminal child, the
     re-stepped state is junk (it can even change the winner).
+
+    ``multi_leaf`` (the walks of a multi-leaf round, ``search``): a walk
+    may also stop at a PENDING child, allocated by an earlier walk of the
+    round and not yet backed up (n == 0). Its stepped state is junk too,
+    but its observation is evaluated, so obs and valids are derived from
+    the leaf's stored state instead (tree_t.py:461-467), for every kind of
+    leaf.
     """
     B = node.shape[0]
     games = torch.arange(B, device=node.device)
@@ -218,6 +254,10 @@ def apply_walk_observe_t(env, tt: TreeT, node, action, child, depth,
     torch.maximum(tt.max_depth, depth, out=tt.max_depth)
     tt.leaf.copy_(leaf)
     e_leaf = tt.e.view(-1, tt.value_size, B)[leaf.long(), :, games]  # [B, V]
+    if multi_leaf:
+        leaf_states = gather_states(env, tt, leaf)
+        obs = env.observation(leaf_states)
+        valid = env.valid_moves(leaf_states)
     return obs, e_leaf, valid
 
 
@@ -228,8 +268,9 @@ def install_prior_t(tt: TreeT, pi, spec: SearchSpec, root_adjust: bool,
     policy ``pi`` [B, A] masked and renormalised against the leaf's valid
     moves, with root temperature and Dirichlet noise where the leaf is the
     root and ``root_adjust`` is set, and tie noise) at row ``slot``
-    (tree_t.py:472, MCTS.pyx:236-258). The random draws are those of
-    ``prior_rows``."""
+    (tree_t.py:472, MCTS.pyx:236-258). A multi-leaf round installs after
+    all its walks, each at its walk's row, with ``root_adjust=False``.
+    The random draws are those of ``prior_rows``."""
     new_prior, nb_a, nb_p = T.prior_rows(
         pi, leaf_valids, spec, (tt.leaf == ROOT) if root_adjust else None,
         gammas, tie, generator)

@@ -16,6 +16,8 @@ for CPU tensors; there is no other fallback.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from alphazero_general_tpu_torch.mcts.tree import DRAW_VALUE, SearchSpec
@@ -137,7 +139,8 @@ def backup_columns_(parent, player, leaf, value, max_depth, n, q, v,
     over game-minor ``[N, B]`` columns, updating n / q / v in place: the
     CUDA kernel (``threads`` a block) for CUDA tensors, the plain version
     for CPU tensors. Counts kernel launches in
-    ``backup_columns_.launches``."""
+    ``backup_columns_.launches``, and by the tree's rows N in
+    ``backup_columns_.launches_by_rows``."""
     tensors = (parent, player, leaf, value, max_depth, n, q, v)
     N, B = _check(tensors, spec)
     if parent.device.type == "cpu":
@@ -145,9 +148,11 @@ def backup_columns_(parent, player, leaf, value, max_depth, n, q, v,
         return
     _launch("azg_backup", tensors, N, B, spec, threads)
     backup_columns_.launches += 1
+    backup_columns_.launches_by_rows[N] += 1
 
 
 backup_columns_.launches = 0
+backup_columns_.launches_by_rows = Counter()
 
 
 def backup_rows_(parent, player, leaf, value, max_depth, n, q, v,
@@ -155,7 +160,8 @@ def backup_rows_(parent, player, leaf, value, max_depth, n, q, v,
     """:func:`backup_columns_` over batch-major ``[B, N]`` rows, read and
     updated where they lie (no transpose); the plain version runs on
     transposed views. Counts kernel launches in
-    ``backup_rows_.launches``."""
+    ``backup_rows_.launches``, and by the tree's rows N in
+    ``backup_rows_.launches_by_rows``."""
     tensors = (parent, player, leaf, value, max_depth, n, q, v)
     N, B = _check(tensors, spec, batch_major=True)
     if parent.device.type == "cpu":
@@ -164,9 +170,11 @@ def backup_rows_(parent, player, leaf, value, max_depth, n, q, v,
         return
     _launch("azg_backup_rows", tensors, N, B, spec, threads)
     backup_rows_.launches += 1
+    backup_rows_.launches_by_rows[N] += 1
 
 
 backup_rows_.launches = 0
+backup_rows_.launches_by_rows = Counter()
 
 
 def backup_batched_t(tt, values, spec: SearchSpec) -> None:

@@ -20,6 +20,8 @@ rows; a larger CUDA tree raises ValueError.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from alphazero_general_tpu_torch.mcts.tree import SearchSpec, UNVISITED
@@ -191,7 +193,8 @@ def descend_columns(parent, parent_action, n, q, v, edge_prior, eany, nba,
                     nbp, spec: SearchSpec):
     """The walk for every game over game-minor ``[N, B]`` columns: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors. Counts
-    kernel launches in ``descend_columns.launches``.
+    kernel launches in ``descend_columns.launches``, and by the tree's
+    rows N in ``descend_columns.launches_by_rows``.
 
     Returns (node, action, child, depth) int32[B] and p_sel float32[B].
     """
@@ -201,10 +204,12 @@ def descend_columns(parent, parent_action, n, q, v, edge_prior, eany, nba,
         return descend_plain(*cols, spec.cpuct, spec.fpu_reduction)
     out = _launch("azg_descend", cols, N, B, spec)
     descend_columns.launches += 1
+    descend_columns.launches_by_rows[N] += 1
     return out
 
 
 descend_columns.launches = 0
+descend_columns.launches_by_rows = Counter()
 
 
 def descend_rows(parent, parent_action, n, q, v, edge_prior, eany, nba, nbp,
@@ -212,7 +217,8 @@ def descend_rows(parent, parent_action, n, q, v, edge_prior, eany, nba, nbp,
     """The walk for every game over batch-major ``[B, N]`` rows, read where
     they lie (no transpose): the CUDA kernel for CUDA tensors, the plain
     version (on transposed views) for CPU tensors. Counts kernel launches
-    in ``descend_rows.launches``.
+    in ``descend_rows.launches``, and by the tree's rows N in
+    ``descend_rows.launches_by_rows``.
 
     Returns (node, action, child, depth) int32[B] and p_sel float32[B].
     """
@@ -223,10 +229,12 @@ def descend_rows(parent, parent_action, n, q, v, edge_prior, eany, nba, nbp,
                              spec.fpu_reduction)
     out = _launch("azg_descend_rows", cols, N, B, spec)
     descend_rows.launches += 1
+    descend_rows.launches_by_rows[N] += 1
     return out
 
 
 descend_rows.launches = 0
+descend_rows.launches_by_rows = Counter()
 
 
 def descend_batched_t(tt, spec: SearchSpec):

@@ -15,10 +15,13 @@ The search tree is fresh every move (a game-minor ``TreeT``), or, with
 ``reuse_tree``, carried across moves in a batch-major ``Tree``: re-rooted
 at the action played (the reference's update_root, MCTS.pyx:185-195) and
 restarted where the game ended, where the kept subtree leaves no room for
-another full search, or where it passed ``reset_threshold`` rows.
+another full search, or where it passed ``reset_threshold`` rows. With
+``leaf_batch`` > 1 the fresh searches run multi-leaf rounds
+(``mcts.search``); searches on carried trees run one leaf, as in the JAX
+package.
 
-Not ported yet: ``leaf_batch`` > 1 and the scanned ``play_chunk`` (its
-caller is the JAX package's multi-device path).
+Not ported yet: the scanned ``play_chunk`` (its caller is the JAX
+package's multi-device path).
 """
 
 from __future__ import annotations
@@ -59,6 +62,9 @@ class SelfPlayConfig(NamedTuple):
     # many nodes (mctsResetThreshold, SelfPlayAgent.pyx:172-174); 0 = only
     # the restart when a full search would not fit.
     reset_threshold: int = 0
+    # Leaves evaluated per network call in a fresh search (multi-leaf
+    # rounds, mcts.search); carried trees run one.
+    leaf_batch: int = 1
     spec: T.SearchSpec = T.SearchSpec()
 
     @property
@@ -77,12 +83,8 @@ class SelfPlayConfig(NamedTuple):
         """The config the reference's knobs describe (utils/config.py), as
         the JAX package's ``from_args`` reads them (selfplay.py:84-113).
         Raises ValueError on a knob whose value the port cannot run: a
-        ``leaf_batch`` other than 1, or a ``temp_scaling_fn`` other than
-        the default schedule and the constant one."""
-        leaf_batch = int(args.get("leaf_batch", 1))
-        if leaf_batch != 1:
-            raise ValueError(f"leaf_batch {leaf_batch} is not ported yet "
-                             "(only 1)")
+        ``temp_scaling_fn`` other than the default schedule and the
+        constant one."""
         temp_fn = args.get("temp_scaling_fn", default_temp_scaling)
         if temp_fn not in (default_temp_scaling, const_temp_scaling):
             raise ValueError(f"temp_scaling_fn {temp_fn!r} is not ported "
@@ -109,6 +111,7 @@ class SelfPlayConfig(NamedTuple):
             tree_capacity=int(args.get("max_tree_nodes", 0)),
             reuse_tree=bool(args.get("reuse_tree", False)),
             reset_threshold=int(args.get("mctsResetThreshold") or 0),
+            leaf_batch=int(args.get("leaf_batch", 1)),
             spec=spec,
         )
 
@@ -209,9 +212,10 @@ def move_step(env, cfg: SelfPlayConfig, eval_fn, carry: SelfPlayState,
     ``carry.trees``, which the search updates in place. With ``warmup`` the
     search runs ``cfg.sims_warmup`` simulations of the uniform evaluation
     with uniform values instead of ``eval_fn`` (SelfPlayAgent.pyx:48-52).
-    Random draws: ``gumbel`` [B, A] is the noise added to the sampling
-    logits, ``search_draws`` the search's; both come from ``generator``
-    where not given.
+    A fresh tree's search, fast, full or warmup, runs ``cfg.leaf_batch``
+    leaves a network call (selfplay.py:205-227). Random draws: ``gumbel``
+    [B, A] is the noise added to the sampling logits, ``search_draws`` the
+    search's; both come from ``generator`` where not given.
     """
     if warmup:
         eval_fn = S.uniform_eval_fn(env.ACTION_SIZE, cfg.spec.value_size,
@@ -232,7 +236,7 @@ def move_step(env, cfg: SelfPlayConfig, eval_fn, carry: SelfPlayState,
         cap = min(cfg.capacity, sims + 2)
         tree = init_tree_t(env, states, cap, cfg.spec.value_size)
         S.search(env, tree, cfg.spec, eval_fn, sims, generator=generator,
-                 draws=search_draws)
+                 draws=search_draws, leaf_batch=cfg.leaf_batch)
         root_visits = tree.n[0].clone()
 
     # Temperature update before sampling (SelfPlayAgent.pyx:156-158).

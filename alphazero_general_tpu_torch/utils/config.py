@@ -153,7 +153,8 @@ def _default_args() -> Args:
         max_tree_nodes=0,
         # Carry search trees across moves, re-rooted at the played action.
         reuse_tree=False,
-        # Leaves evaluated per network call; only 1 is ported.
+        # Leaves evaluated per network call in self-play's fresh searches
+        # (multi-leaf rounds, mcts/search.py); 1 is the reference's search.
         leaf_batch=1,
         # Int8-quantized network tower for self-play and arena inference
         # after the warmup (models/quant.py); architectures without an int8
@@ -178,8 +179,6 @@ def check_ported(args: Args) -> None:
     """Raise ValueError on a knob whose value selects a path the port does
     not run yet, instead of falling back to another path."""
     unported = []
-    if int(args.get("leaf_batch", 1)) != 1:
-        unported.append(f"leaf_batch={args.leaf_batch} (only 1)")
     if int(args.get("mesh_batch_axis", -1)) not in (-1, 1):
         unported.append(f"mesh_batch_axis={args.mesh_batch_axis} (one "
                         "device only: -1 or 1)")

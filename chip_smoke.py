@@ -30,7 +30,9 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    links equal, q within ``TOL_FLOAT``.
 5. self-play: 4 moves (fast, fast, fast, full) of the production config
    through ``make_move_fns``, with launch counters proving that every
-   simulation went through both game-minor kernels.
+   simulation went through both game-minor kernels, on trees of the rows
+   that the segments of ``search._segment_plan`` give (each wrapper
+   counts its launches by tree rows too).
    int8: the int8 tower (models/quant.py) of the same random network,
    calibrated on random playouts on the card: each tower conv's int32
    output equal to the CPU's for the same int8 input, the forward within
@@ -80,9 +82,10 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    249 simulations) and a 50-simulation one (N = 53), each timed at its
    last snapshot as in phase 3; brandubh's self-play searches (1024
    games, 150 and 30 simulations, N = 153 and 33) untimed; and a
-   brandubh arena round's search (64 games, 150 simulations, no root
-   noise), timed. Then the prior rows' read and write per simulation,
-   timed in the TreeT's batch-major layout and in a game-minor one.
+   round's search of the brandubh Coach phase's arena (64 games, 50
+   simulations, no root noise), timed. Then the prior rows' read and
+   write per simulation, timed in the TreeT's batch-major layout and in a
+   game-minor one.
 10. hnefatafl self-play: 4 moves (fast, fast, fast, full) of the preset
    through ``make_move_fns``, with launch counters proving that every
    simulation went through both game-minor kernels and no plain version
@@ -93,9 +96,10 @@ Phases, each printed with its seconds; the first failure exits non-zero:
 11. tafl reference: a hnefatafl search (64 games) on the card against the
    same search on the CPU through the plain versions.
 12. brandubh coach: one Coach cycle of the brandubh preset through
-   ``cli.train``'s ``main``, cut as ``BRANDUBH_COACH_CUTS`` says, with the
-   checks of phase 8 (the npz rows are dense pi rows of width 588; the
-   float tower, ``quant_selfplay=False``, keeps that Coach path driven).
+   ``cli.train``'s ``main``, cut as ``BRANDUBH_COACH_CUTS`` says (a past
+   arena of 64 games at 50 simulations), with the checks of phase 8 (the
+   npz rows are dense pi rows of width 588; the float tower,
+   ``quant_selfplay=False``, keeps that Coach path driven).
 
 13. env rollouts: random playouts of tictactoe, nim3, othello, gobang,
    stratego, chess (from the six perft positions and random openings) and
@@ -160,8 +164,42 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    reach the metrics file, and every arena simulation ran through both
    game-minor kernels.
 
+26. multi-leaf reference: a connect4 fresh search at ``LEAF_BATCH`` (256
+   games, 64 simulations: 7 rounds and 7 single; a table evaluation, root
+   and tie noise from fixed draws) on the card against the same on the
+   CPU: visit counts, n and links equal, q and v within ``TOL_FLOAT``.
+27. multi-leaf self-play: the 4 moves of phase 5 at ``LEAF_BATCH`` and at
+   leaf_batch 1 through ``make_move_fns``, in turns (8, 1, 1, 8), each
+   with phase 5's checks, the network calls of every search (one a round,
+   one a single simulation: 12 at 40 simulations, 32 at 200) and the root
+   children's visits (sims - 1); sims/s of each run, kernel launches a
+   simulation over one more fast move of each (torch.profiler), peak
+   memory.
+28. kernels under rounds: both game-minor kernels bit for bit against
+   their plain versions mid-round in a 200-simulation ``LEAF_BATCH``
+   search at 2048 games (descend before a round's last walk, backup at
+   its first backup, each snapshot holding pending children), timed at
+   the last round as in phase 3.
+29. segments: a 200-simulation search at 2048 games (a table evaluation)
+   segmented, with both game-minor kernels bit for bit at the last
+   simulation of every segment and timed at N = 32, 64 and 128, then
+   segmented and flat under torch.profiler: every TreeT field bit-equal,
+   descend's and backup's device ms a simulation each way; each slice's
+   kernel records carry the phase-8 Coach's launches on trees of its
+   rows. Then an MCTSPlayer move over the pit's kind of checkpoint and a
+   rawmcts move at 200 simulations, segmented (both rows kernels bit for
+   bit at each slice) and flat: every field but the sink row equal, the
+   same move; then ``PLAYER_TIMED_MOVES`` moves of each layout in turns,
+   and the host's time of a move's slice copies and merges.
+30. multi-leaf coach: the connect4 preset through ``cli.train.main`` at
+   ``LEAF_BATCH``, cut as ``LEAF_COACH_CUTS`` says (a warmup iteration,
+   then a resumed call for a network iteration over the int8 tower, 2048
+   games each, no arenas), with the checks of phase 8 (the int8 forwards
+   counted a network call each).
+
 Before the card's line come the int8 phases' numbers
-``{"int8_tower": {...}}``; the last two lines are the kernels line
+``{"int8_tower": {...}}`` and the search layer's ``{"search_layer":
+{...}}``; the last two lines are the kernels line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``. The script
 imports nothing of JAX.
 """
@@ -226,7 +264,8 @@ REUSE_SNAPSHOTS = (0, 50, 120, 199)
 #: timed search is timed.
 TAFL_SNAPSHOTS = {("hnefatafl", 250): (50, 249), ("hnefatafl", 50): (20, 49),
                   ("brandubh", 150): (37, 149), ("brandubh", 30): (15, 29)}
-#: Games of a brandubh arena round (BRANDUBH_COACH_CUTS' arenaCompare).
+#: Games of the brandubh Coach phase's past arena, whose round the tafl
+#: kernel phase holds (the preset's arenaCompare: 128).
 BRANDUBH_ARENA_GAMES = 64
 #: Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 #: float32 (non-tensor-core) operations/s, for the kernels' bounds.
@@ -413,10 +452,41 @@ def device_ms(fn, reps: int, device, kernel: str,
 def reset_counts() -> None:
     for wrapper in COUNTED.values():
         wrapper.launches = 0
+        wrapper.launches_by_rows.clear()
 
 
 def read_counts() -> dict:
     return {name: wrapper.launches for name, wrapper in COUNTED.items()}
+
+
+def read_counts_by_rows() -> dict:
+    """{kernel: {tree rows N: launches}} since the last reset."""
+    return {name: dict(wrapper.launches_by_rows)
+            for name, wrapper in COUNTED.items()}
+
+
+def fresh_launches_by_rows(cfg, moves) -> dict:
+    """The game-minor kernels' launches by tree rows N that fresh searches
+    of ``moves`` [(kind, sims, ...)] under ``cfg`` make: the root's
+    expansion backs up on the whole tree (N = its capacity + 1 rows), and
+    simulations [lo, hi) of each segment of ``search._segment_plan`` walk
+    and back up on n rows; rounds (``leaf_batch`` > 1) run on the whole
+    tree."""
+    out = {"descend": {}, "backup": {}}
+
+    def add(kernel, n, count):
+        out[kernel][n] = out[kernel].get(n, 0) + count
+
+    for _, sims, *_ in moves:
+        rows = min(cfg.capacity, sims + 2) + 1
+        add("backup", rows, 1)
+        plan = (S._segment_plan(sims, rows) if cfg.leaf_batch == 1
+                else [(rows, 1, sims)])
+        for n, lo, hi in plan:
+            if hi > lo:
+                add("descend", n, hi - lo)
+                add("backup", n, hi - lo)
+    return out
 
 
 def launch_floor_ms(device, reps: int = 50) -> float:
@@ -612,6 +682,55 @@ def _descend_bytes(cols, walk) -> int:
     return elems * 4
 
 
+def time_descend(cols, spec, device, reps: int) -> dict:
+    """The game-minor descend kernel's times on the columns ``cols`` (cold
+    with L2 flushed, warm, per wrapper call, host, plain) and what its
+    bound needs (the walks' steps and bytes)."""
+    host_calls = HOST_CALLS if torch.device(device).type == "cuda" else reps
+    walk = OD.descend_columns(*cols, spec)
+    launch = lambda: OD.descend_columns(*cols, spec)  # noqa: E731
+    N, B = cols[0].shape
+    return dict(
+        ms=kernel_ms(launch, reps, device, "descend_kernel", flush_l2=True),
+        ms_l2_warm=kernel_ms(launch, reps, device, "descend_kernel"),
+        call_ms=time_ms(launch, reps, device),
+        host_ms=host_ms(launch, host_calls, device),
+        plain_ms=time_ms(lambda: OD.descend_plain(
+            *cols, spec.cpuct, spec.fpu_reduction), 3, device),
+        N=N, B=B, depth_sum=int(walk[3].sum().item()),
+        depth_max=int(walk[3].max().item()), bytes=_descend_bytes(cols, walk))
+
+
+def time_backup(args, nqv, spec, device, reps: int,
+                by_threads: bool = False) -> dict:
+    """The game-minor backup kernel's times from the state ``args``
+    (parent, player, leaf, values, max_depth) and ``nqv``, on copies of
+    n, q, v (cold, warm, per wrapper call, host, plain; with
+    ``by_threads``, cold at each block size of ``BACKUP_THREADS``) and the
+    path lengths its bound needs."""
+    host_calls = HOST_CALLS if torch.device(device).type == "cuda" else reps
+    scratch = [x.clone() for x in nqv]
+    paths = _path_lengths(args[0], args[2])
+
+    def launch(threads=OB.THREADS):
+        OB.backup_columns_(*args, *scratch, spec, threads=threads)
+
+    out = dict(
+        ms=kernel_ms(launch, reps, device, "backup_kernel", flush_l2=True),
+        ms_l2_warm=kernel_ms(launch, reps, device, "backup_kernel"),
+        call_ms=time_ms(launch, reps, device),
+        host_ms=host_ms(launch, host_calls, device),
+        plain_ms=time_ms(lambda: OB.backup_plain_(*args, *scratch, spec), 3,
+                         device),
+        N=args[0].shape[0], B=args[0].shape[1], path_sum=int(paths.sum()),
+        path_max=int(paths.max()))
+    if by_threads:
+        out["ms_by_threads"] = {t: kernel_ms(
+            lambda: launch(t), reps, device, "backup_kernel", flush_l2=True)
+            for t in BACKUP_THREADS}
+    return out
+
+
 def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
                  device, reps: int = 50, timed: bool = True,
                  opening_plies: int = 6):
@@ -621,7 +740,6 @@ def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
     at the last snapshot."""
     last = snapshots[-1] if timed else None
     gen = torch.Generator(device).manual_seed(SEED)
-    host_calls = HOST_CALLS if torch.device(device).type == "cuda" else reps
     roots = random_openings(env, batch, opening_plies, gen, device)
     tt = init_tree_t(env, roots, sims + 2, spec.value_size)
     S._simulate_step_t(env, tt, spec, eval_fn, root_adjust=True, slot=0,
@@ -638,45 +756,15 @@ def kernel_phase(env, eval_fn, spec, batch: int, sims: int, snapshots,
         errs["descend"] = max(errs["descend"],
                               compare_descend(cols, spec, where))
         if slot == last:
-            walk = OD.descend_columns(*cols, spec)
-            launch = lambda: OD.descend_columns(*cols, spec)  # noqa: E731
-            timing["descend"] = dict(
-                ms=kernel_ms(launch, reps, device, "descend_kernel",
-                             flush_l2=True),
-                ms_l2_warm=kernel_ms(launch, reps, device, "descend_kernel"),
-                call_ms=time_ms(launch, reps, device),
-                host_ms=host_ms(launch, host_calls, device),
-                plain_ms=time_ms(lambda: OD.descend_plain(
-                    *cols, spec.cpuct, spec.fpu_reduction), 3, device),
-                N=tt.parent.shape[0], B=batch,
-                depth_sum=int(walk[3].sum().item()),
-                depth_max=int(walk[3].max().item()),
-                bytes=_descend_bytes(cols, walk))
+            timing["descend"] = time_descend(cols, spec, device, reps)
         values = S._leaf_step_t(env, tt, spec, eval_fn, False, slot, False,
                                 gen)
         args = (tt.parent, tt.player, tt.leaf, values, tt.max_depth)
         errs["backup"] = max(errs["backup"], compare_backup(
             args, (tt.n, tt.q, tt.v), spec, where))
         if slot == last:
-            scratch = [tt.n.clone(), tt.q.clone(), tt.v.clone()]
-            paths = _path_lengths(tt.parent, tt.leaf)
-
-            def launch(threads=OB.THREADS):
-                OB.backup_columns_(*args, *scratch, spec, threads=threads)
-
-            timing["backup"] = dict(
-                ms=kernel_ms(launch, reps, device, "backup_kernel",
-                             flush_l2=True),
-                ms_l2_warm=kernel_ms(launch, reps, device, "backup_kernel"),
-                call_ms=time_ms(launch, reps, device),
-                host_ms=host_ms(launch, host_calls, device),
-                plain_ms=time_ms(lambda: OB.backup_plain_(
-                    *args, *scratch, spec), 3, device),
-                ms_by_threads={t: kernel_ms(
-                    lambda: launch(t), reps, device, "backup_kernel",
-                    flush_l2=True) for t in BACKUP_THREADS},
-                N=tt.parent.shape[0], B=batch, path_sum=int(paths.sum()),
-                path_max=int(paths.max()))
+            timing["backup"] = time_backup(args, (tt.n, tt.q, tt.v), spec,
+                                           device, reps, by_threads=True)
         OB.backup_batched_t(tt, values, spec)
         log(f"  snapshot after {slot} sims: descend and backup agree "
             f"(max errors {errs['descend']:.3g}, {errs['backup']:.3g})")
@@ -880,6 +968,7 @@ def selfplay_phase(env, model, cfg, batch: int, cycle, device,
             log(f"  {kind} move: {sims} sims x {batch} games in {dt:.3f} s "
                 f"= {batch * sims / dt:,.0f} sims/s")
     launches = read_counts()
+    by_rows = read_counts_by_rows()
     total = sum(s for _, s, _ in moves)
     expect = dict.fromkeys(COUNTED, 0)
     if cuda:  # the plain versions run on the CPU and launch nothing
@@ -887,6 +976,10 @@ def selfplay_phase(env, model, cfg, batch: int, cycle, device,
             expect.update(descend_rows=total, backup_rows=total)
         else:
             expect.update(descend=total - len(moves), backup=total)
+            want = fresh_launches_by_rows(cfg, moves)
+            got = {k: by_rows[k] for k in want}
+            check(got == want, f"kernel launches by tree rows {got} != "
+                  f"the segments' {want}")
         check(pd.calls == 0 and pb.calls == 0,
               f"plain versions ran on the card ({pd.calls} descend, "
               f"{pb.calls} backup)")
@@ -898,7 +991,7 @@ def selfplay_phase(env, model, cfg, batch: int, cycle, device,
         check(carried > 0, "no tree was carried into the next move")
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     total_s = sum(dt for _, _, dt in moves)
-    return dict(moves=moves, launches=launches,
+    return dict(moves=moves, launches=launches, launches_by_rows=by_rows,
                 sims_per_s=batch * total / total_s,
                 wall_ms_per_sim=total_s * 1e3 / total, peak_bytes=peak,
                 restarts=restarts, carried=carried, carry=carry, fns=fns,
@@ -1189,43 +1282,74 @@ def _read_metrics(path) -> dict:
     return out
 
 
-class _PlainCounter:
+class _Patched:
+    """Installs ``fn`` as ``module.name`` while entered."""
+
+    def __init__(self, module, name, fn):
+        self.module, self.name, self.fn = module, name, fn
+        self.orig = getattr(module, name)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self.fn)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+class _PlainCounter(_Patched):
     """Counts calls of a kernel's plain version while installed in its
     module (the wrappers look it up there)."""
 
     def __init__(self, module, name):
-        self.module, self.name = module, name
-        self.fn = getattr(module, name)
+        super().__init__(module, name, self._count)
         self.calls = 0
 
-    def __call__(self, *a, **k):
+    def _count(self, *a, **k):
         self.calls += 1
-        return self.fn(*a, **k)
+        return self.orig(*a, **k)
 
-    def __enter__(self):
-        setattr(self.module, self.name, self)
-        return self
 
-    def __exit__(self, *exc):
-        setattr(self.module, self.name, self.fn)
+def selfplay_net_calls(args, moves: int, sims: int) -> int:
+    """Network calls of a non-warmup self-play iteration of ``moves`` fast
+    and full moves that searched ``sims`` simulations in all, at the
+    args' ``leaf_batch`` (``net_calls``): the full moves' count follows
+    from the two totals."""
+    fast, full = int(args.numFastSims), int(args.numMCTSSims)
+    k = int(args.get("leaf_batch", 1))
+    if k == 1:
+        return sims
+    if fast == full:
+        return moves * len(net_calls(full, k))
+    n_full, rest = divmod(sims - fast * moves, full - fast)
+    check(rest == 0 and 0 <= n_full <= moves,
+          f"{moves} moves of {fast} or {full} simulations cannot make "
+          f"{sims}")
+    return ((moves - n_full) * len(net_calls(fast, k))
+            + n_full * len(net_calls(full, k)))
 
 
 def coach_phase(device, root: str, sets: dict,
-                env_name: str = "connect4") -> dict:
+                env_name: str = "connect4", resume: dict = None) -> dict:
     """One Coach cycle of ``env_name``'s preset through ``cli.train.main``,
-    cut by ``sets``, in ``root``; then every check of the cycle from its
-    files and metrics (the arenas its schedule ran, and no others), and
-    the launch counters against the searches it ran."""
+    cut by ``sets``, in ``root``; with ``resume``, a second call with
+    those sets resumes the run (``load_model``, the default) where the
+    first ended. Then every check of the cycle from its files and metrics
+    (the arenas its schedule ran, and no others), and the launch counters
+    against the searches it ran."""
     from alphazero_general_tpu_torch.cli import train as cli_train
     from alphazero_general_tpu_torch.selfplay.replay import ReplayStore
 
     env = get_env(env_name)
-    args = preset_args(env_name, **sets)
+    args = preset_args(env_name, **(resume or sets))
     dirs = dict(run_name="smoke", checkpoint=f"{root}/checkpoint",
                 data=f"{root}/data", log_dir=f"{root}/runs")
-    argv = [env_name, "--device", str(torch.device(device).type)]
-    for k, v in {**sets, **dirs}.items():
-        argv += ["--set", f"{k}={v!r}"]
+    argvs = []
+    for cut in [sets] + ([resume] if resume else []):
+        argv = [env_name, "--device", str(torch.device(device).type)]
+        for k, v in {**cut, **dirs}.items():
+            argv += ["--set", f"{k}={v!r}"]
+        argvs.append(argv)
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
@@ -1235,10 +1359,13 @@ def coach_phase(device, root: str, sets: dict,
     with _PlainCounter(OD, "descend_plain") as pd, \
             _PlainCounter(OB, "backup_plain_") as pb:
         t0 = time.perf_counter()
-        check(cli_train.main(argv) == 0, "cli.train.main did not return 0")
+        for argv in argvs:
+            check(cli_train.main(argv) == 0,
+                  f"cli.train.main {argv} did not return 0")
         sync(device)
         wall = time.perf_counter() - t0
     launches = read_counts()
+    by_rows = read_counts_by_rows()
     int8_forwards = Q.QuantResNet.forwards
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
 
@@ -1255,9 +1382,11 @@ def coach_phase(device, root: str, sets: dict,
     store = ReplayStore(dirs["data"], "smoke")
     batch = int(args.train_batch_size)
     searches = simulations = 0
-    out = dict(wall=wall, launches=launches, peak_bytes=peak, iters={},
+    out = dict(wall=wall, launches=launches, launches_by_rows=by_rows,
+               peak_bytes=peak, iters={},
                games_per_batch=int(args.process_batch_size), env=env_name,
-               cuts=sets)
+               cuts=dict(sets, resumed_to=resume["numIters"]) if resume
+               else sets)
     sims = int(args.numMCTSSims)
     # The arena schedule of Coach.learn: (kind, games knob, runs or not,
     # every how many iterations).
@@ -1275,6 +1404,10 @@ def coach_phase(device, root: str, sets: dict,
     # the CPU parity tests hold to the JAX Coach.
     preset_gate = float(preset_args(env_name).min_next_model_winrate)
     for it in range(1, iters + 1):
+        if resume and it == int(sets["numIters"]) + 1 \
+                and resume.get("selfPlayModelIter"):
+            # The resumed Coach's self-play model (coach.py:91-95).
+            prev_gate = min(int(resume["selfPlayModelIter"]), it - 1)
         obs, pi, value = store.load(it)
         n = int(m["self_play/samples"][it])
         check(len(obs) == len(pi) == len(value) == n and n > 0,
@@ -1308,8 +1441,9 @@ def coach_phase(device, root: str, sets: dict,
         check(rec["int8"]["self_play"] == float(quant and not warmup),
               f"coach: iteration {it} self-play int8 flag "
               f"{rec['int8']['self_play']}, quant_selfplay={quant}")
-        expect_forwards += int(rec["int8"]["self_play"]) * int(
-            rec["self_play_sims"])
+        if rec["int8"]["self_play"]:
+            expect_forwards += selfplay_net_calls(
+                args, int(rec["moves"]), int(rec["self_play_sims"]))
         want_gate = prev_gate
         for kind, knob, on, freq in arenas:
             ran = on and int(args[knob]) > 0 and (it - 1) % freq == 0
@@ -1684,14 +1818,18 @@ KERNELS = {
 
 
 def kernel_record(name: str, kernel: str, t: dict, launches: int,
-                  err: float) -> dict:
+                  err: float, by_rows: dict = None) -> dict:
     """One JSON record of ``kernel`` (a key of KERNELS) timed on the
     snapshot ``t``. ``ms`` is the device time of one launch with L2
     flushed before it, on the snapshot the bound is computed from;
     ``ms_l2_warm`` the same launch back to back with its inputs in L2;
-    ``host_ms`` the host's time per wrapper call."""
+    ``host_ms`` the host's time per wrapper call. With ``by_rows`` (the
+    kernel's launches by tree rows in the run ``launches`` counts),
+    ``launches_at_N`` is those of them on trees of the snapshot's rows."""
     src, replaces, kind = KERNELS[kernel]
     bound = kernel_bound(kind, t, t["B"])
+    at_n = {} if by_rows is None else {"launches_at_N":
+                                       by_rows.get(t["N"], 0)}
     return {
         "name": name, "route": "cuda", "source": src,
         "replaces": replaces, "launches": launches,
@@ -1700,17 +1838,18 @@ def kernel_record(name: str, kernel: str, t: dict, launches: int,
         "call_ms": t["call_ms"], "host_ms": t["host_ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": bound[0], "bound_by": bound[1],
-        "library_ms": None, "N": t["N"], "B": t["B"],
+        "library_ms": None, "N": t["N"], "B": t["B"], **at_n,
     }
 
 
 def log_coach(co: dict, smi: str) -> None:
     """The Coach phase's numbers, per iteration."""
+    by_rows = {k: co["launches_by_rows"][k] for k in ("descend", "backup")}
     log(f"  {co['env']} coach cycle through cli.train.main: "
         f"{co['wall']:.1f} s; cuts {co['cuts']}; {co['searches']} searches, "
-        f"{co['simulations']} simulations; launches {co['launches']}; "
-        f"int8 tower forwards {co['int8_forwards']}; peak "
-        f"memory {co['peak_bytes'] / 2**30:.2f} GiB; card: {smi}")
+        f"{co['simulations']} simulations; launches {co['launches']}, by "
+        f"tree rows {by_rows}; int8 tower forwards {co['int8_forwards']}; "
+        f"peak memory {co['peak_bytes'] / 2**30:.2f} GiB; card: {smi}")
     for it, r in co["iters"].items():
         t = r["times"]
         log(f"  iteration {it}: " + ", ".join(
@@ -1890,8 +2029,13 @@ def connect4_phases(device, smi: str) -> tuple:
         f"{TRAIN_RTOL}, atol {TRAIN_ATOL}: " + ", ".join(
             f"{k} (max error {e:.3g})" for k, e in other.items()))
     log(f"phase FC and GroupNorm: {time.perf_counter() - t0:.1f} s")
-    return ([kernel_record(k, k, timing[k], launches[k], errs[k])
-             for k in KERNELS], i8)
+    # The Coach's launches by tree rows: its fresh searches run in
+    # segments, so the records' N = 203 covers the last segment only.
+    by_rows = co["launches_by_rows"]
+    return ([kernel_record(k, k, timing[k], launches[k], errs[k],
+                           by_rows[k] if k in ("descend", "backup")
+                           else None)
+             for k in KERNELS], i8, by_rows)
 
 
 #: The brandubh Coach phase: the brandubh preset (envs/presets.py: 1024
@@ -1899,16 +2043,20 @@ def connect4_phases(device, smi: str) -> tuple:
 #: ResNet 128 x 10 with [2048, 256] / [2048, 512] heads, train batch 1024)
 #: through ``cli.train.main``, cut to two iterations (the first a warmup
 #: one), one lockstep batch of games an iteration (preset: 4096), no
-#: baseline arena (preset: 128 games each iteration), one past arena of 64
-#: games, after iteration 1 (preset: 128 games each iteration; 64 leave
-#: the script room for the other envs' phases), a gate of 0
-#: (preset: 0.52) so that iteration 2 plays the trained network, and the
-#: float tower (``quant_selfplay=False``: the connect4 Coach drives the
-#: int8 one).
+#: baseline arena (preset: 128 games each iteration), one past arena of
+#: ``BRANDUBH_ARENA_GAMES`` games after iteration 1 (preset: 128 games
+#: each iteration), 50 full simulations (preset: 150; the arena searches
+#: full searches, and its rounds are host-bound, so its time follows the
+#: simulations and not the games: 178-245 s of the script at 150), a gate
+#: of 0 (preset: 0.52) so that iteration 2 plays the trained network, and
+#: the float tower (``quant_selfplay=False``: the connect4 Coach drives
+#: the int8 one).
 BRANDUBH_COACH_CUTS = dict(numIters=2, numWarmupIters=1,
                            gamesPerIteration=1024, compareWithBaseline=False,
-                           pastCompareFreq=2, arenaCompare=64,
-                           min_next_model_winrate=0.0, quant_selfplay=False)
+                           pastCompareFreq=2,
+                           arenaCompare=BRANDUBH_ARENA_GAMES,
+                           numMCTSSims=50, min_next_model_winrate=0.0,
+                           quant_selfplay=False)
 #: Games and simulations of the tafl reference phase (a hnefatafl search on
 #: the card against the CPU's), and the rows of its table evaluation.
 TAFL_REFERENCE = dict(batch=64, sims=32, rows=1021)
@@ -1931,7 +2079,10 @@ def tafl_kernel_phase(device, nets: dict):
         batch, sims = int(args.process_batch_size), key
         timed = name == "hnefatafl"
         what = f"{sims} simulations"
-        if key == "arena":
+        if key == "arena":  # the Coach phase's arena
+            args = preset_args(
+                name, seed=SEED,
+                numMCTSSims=BRANDUBH_COACH_CUTS["numMCTSSims"])
             arena = ArenaConfig.from_args(args, env.NUM_PLAYERS, env.HAS_DRAW)
             spec, batch, timed = arena.spec, BRANDUBH_ARENA_GAMES, True
             sims, snaps = arena.sims, (arena.sims // 4, arena.sims - 1)
@@ -2775,6 +2926,536 @@ def player_phases(device, smi: str) -> list:
             for k in ("descend_rows", "backup_rows")]
 
 
+# --------------------------------------------------------------------------
+# The search layer: multi-leaf rounds and growing-arena segments (26-30)
+# --------------------------------------------------------------------------
+
+#: Leaves a network call of the multi-leaf phases: the JAX package's gated
+#: connect4 A/B ran leaf_batch=8 (results/r2/c4_elo_leaf8_config.py:33).
+LEAF_BATCH = 8
+#: Rounds (0-based) of phase 28's 200-simulation search at which both
+#: game-minor kernels are held mid-round; the last is timed.
+ROUND_SNAPSHOTS = (5, 23)
+#: Games and simulations of the multi-leaf reference (phase 26).
+LEAF_REFERENCE = dict(batch=256, sims=64)
+#: The multi-leaf Coach phase (30): the connect4 preset through
+#: ``cli.train.main`` at leaf_batch=8 and the JAX default
+#: ``quant_selfplay=True``, cut to one warmup iteration and one network
+#: iteration of 2048 games (preset: 8192) and no arenas (preset: both every
+#: iteration). Without a past arena nothing promotes a model, so the
+#: second iteration resumes the run (``load_model``, the default) in a
+#: second call with ``selfPlayModelIter=1``: its self-play plays the
+#: iteration-1 network, over the int8 tower.
+LEAF_COACH_CUTS = dict(numWarmupIters=1, gamesPerIteration=2048,
+                       compareWithBaseline=False, compareWithPast=False,
+                       selfPlayModelIter=1, leaf_batch=LEAF_BATCH)
+
+
+#: Moves of each layout (segmented, flat) timed in turns in the players'
+#: segment phase.
+PLAYER_TIMED_MOVES = 6
+
+
+def net_calls(sims: int, leaf_batch: int) -> list:
+    """The batch of each network call of a fresh search of ``sims``
+    simulations at ``leaf_batch`` K, in units of the game batch: the
+    root's expansion, then K for each of the (sims - 1) // K rounds and 1
+    for each of the (sims - 1) % K simulations left over (K = 1: one call
+    a simulation)."""
+    if leaf_batch == 1:
+        return [1] * sims
+    rounds, rest = divmod(sims - 1, leaf_batch)
+    return [1] + [leaf_batch] * rounds + [1] * rest
+
+
+def pending_children(tt, skip_leaf: bool = False) -> int:
+    """Allocated children not yet backed up (n == 0) over every game of a
+    TreeT, the sink aside; with ``skip_leaf``, not counting each game's
+    pending leaf, which the next backup visits."""
+    pend = (tt.parent[:-1] >= 0) & (tt.n[:-1] == 0)
+    if skip_leaf:
+        pend[tt.leaf.long(), torch.arange(pend.shape[1],
+                                          device=pend.device)] = False
+    return int(pend.sum())
+
+
+def _same_fields(a, b, what: str, skip_sink: bool = False) -> None:
+    """Every tensor of two Trees or TreeTs equal; with ``skip_sink`` (two
+    batch-major trees), all but the last row of each [B, N, ...] one."""
+    names = [f.name for f in dataclasses.fields(a)
+             if isinstance(getattr(a, f.name), torch.Tensor)]
+    pairs = [(f"node_state.{k}", x, b.node_state[k])
+             for k, x in a.node_state.items()]
+    pairs += [(k, getattr(a, k), getattr(b, k)) for k in names]
+    for name, x, y in pairs:
+        if skip_sink and x.dim() > 1:
+            x, y = x[:, :-1], y[:, :-1]
+        check(bits_equal(x, y), f"{what}: {name} differs")
+
+
+def multileaf_reference_phase(env, device, batch: int, sims: int) -> None:
+    """Phase 26: a fresh search at ``LEAF_BATCH`` through the kernels on
+    the card against the same search through the plain versions on the
+    CPU: a table evaluation, root and tie noise on with the same draws
+    made on the CPU. Visit counts, n and links equal, q and v within
+    ``TOL_FLOAT``."""
+    spec = T.SearchSpec()
+    eval_fn = table_eval_fn(env, spec.value_size)
+    gen = torch.Generator("cpu").manual_seed(SEED + 21)
+    roots = random_openings(env, batch, 8, gen, "cpu")
+    tie = torch.rand((sims, batch, env.ACTION_SIZE), generator=gen)
+    nvalid = env.valid_moves(roots).sum(-1, keepdim=True).clamp(min=1)
+    gammas = torch._standard_gamma(
+        (T.NOISE_ALPHA_RATIO / nvalid.float()).expand(
+            batch, env.ACTION_SIZE).contiguous(), generator=gen)
+    trees = []
+    for dev in (device, "cpu"):
+        tt = init_tree_t(env, _to(roots, dev), sims + 2, spec.value_size)
+        draws = S.SearchDraws(tie=tie.to(dev), gammas=gammas.to(dev))
+        trees.append(S.search(env, tt, spec, eval_fn, sims, draws=draws,
+                              leaf_batch=LEAF_BATCH))
+    got, want = trees
+    check(torch.equal(T.counts(got).cpu(), T.counts(want)),
+          f"multi-leaf reference: visit counts differ between {device} and "
+          "cpu")
+    for name in ("n", "parent", "parent_action"):
+        check(torch.equal(getattr(got, name)[:-1].cpu(),
+                          getattr(want, name)[:-1]),
+              f"multi-leaf reference: {name} differs between {device} and "
+              "cpu")
+    err = max((getattr(got, k)[:-1].cpu() - getattr(want, k)[:-1])
+              .abs().max().item() for k in ("q", "v"))
+    check(err <= TOL_FLOAT, f"multi-leaf reference: q, v error {err}")
+    check(bool((want.n[0] == sims).all()),
+          "multi-leaf reference: root visits != sims")
+    rounds, rest = divmod(sims - 1, LEAF_BATCH)
+    log(f"  {env.NAME}: {batch} games x {sims} sims at leaf_batch "
+        f"{LEAF_BATCH} ({rounds} rounds, {rest} single) on {device} == cpu "
+        f"(counts, n, links equal; q, v max error {err:.3g})")
+
+
+def launches_per_sim(fn, sims: int, device) -> float:
+    """Kernel launches of every kind per simulation over one call of
+    ``fn`` (one move of ``sims`` simulations) under torch.profiler; on
+    the CPU, 0."""
+    if torch.device(device).type != "cuda":
+        fn()
+        return 0.0
+    with torch.profiler.profile(activities=PROFILED) as prof:
+        fn()
+        sync(device)
+    return sum(e.count for e in _device_kernels(prof)) / sims
+
+
+def multileaf_selfplay_phase(env, model, cfg, batch: int, device) -> dict:
+    """Phase 27: the moves of ``CYCLE`` at ``LEAF_BATCH`` and at leaf_batch
+    1 through make_move_fns, in turns (``LEAF_BATCH``, 1, 1,
+    ``LEAF_BATCH``), each with selfplay_phase's checks (root visits, legal
+    float16 policies, both game-minor kernels once a simulation, no plain
+    version); each search's network calls are its rounds' and single
+    simulations' (``net_calls``), and its root children's visits sum to
+    sims - 1. After an untimed fast move at each leaf batch (the first
+    forward at a batch picks cuDNN's algorithms): sims/s of every run,
+    kernel launches a simulation over one more fast move (torch.profiler)
+    and peak memory. Returns {leaf_batch: the first run's numbers, with
+    ``sims_per_s`` the list of both runs'}."""
+    for k in (LEAF_BATCH, 1):  # warm-up: cuDNN's choice at each batch
+        make_move_fns(env, cfg._replace(leaf_batch=k), model)["fast"](
+            init_selfplay(env, batch, device=device),
+            generator=torch.Generator(device).manual_seed(SEED))
+    out = {}
+    sims_of = [cfg.sims_fast if kind == "fast" else cfg.sims_full
+               for kind in CYCLE]
+    for k in (LEAF_BATCH, 1, 1, LEAF_BATCH):
+        batches, visits = [], []
+
+        def counted(obs):
+            batches.append(obs.shape[0])
+            return model(obs)
+
+        def counts(tree, fn=T.counts):
+            c = fn(tree)
+            visits.append(c.sum(-1))
+            return c
+
+        with _Patched(T, "counts", counts):
+            r = selfplay_phase(env, counted, cfg._replace(leaf_batch=k),
+                               batch, CYCLE, device)
+        want = [batch * m for s in sims_of for m in net_calls(s, k)]
+        check(batches == want,
+              f"leaf_batch {k}: network calls of {len(batches)} batches "
+              f"{sorted(set(batches))}, the searches need {len(want)}")
+        for s, v in zip(sims_of, visits):
+            check(bool((v == s - 1).all()),
+                  f"leaf_batch {k}: root children's visits != {s - 1}")
+        if k in out:
+            out[k]["sims_per_s"].append(r["sims_per_s"])
+            out[k]["peak_bytes"] = max(out[k]["peak_bytes"],
+                                       r["peak_bytes"])
+        else:
+            r["launches_per_sim"] = launches_per_sim(
+                lambda: r["fns"]["fast"](r["carry"],
+                                         generator=r["generator"]),
+                cfg.sims_fast, device)
+            r["net_calls"] = {s: len(net_calls(s, k)) for s in set(sims_of)}
+            out[k] = dict(r, sims_per_s=[r["sims_per_s"]])
+        log(f"  leaf_batch {k}: {r['sims_per_s']:,.0f} sims/s over "
+            f"{len(r['moves'])} moves; network calls a search "
+            f"{out[k]['net_calls']}; kernel launches a simulation "
+            f"{out[k]['launches_per_sim']:.1f} (a fast move); launches "
+            f"{r['launches']}; peak memory {r['peak_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
+def rounds_kernel_phase(env, eval_fn, spec, batch: int, sims: int, device,
+                        reps: int = 50) -> tuple:
+    """Phase 28: both game-minor kernels against their plain versions in
+    the middle of rounds of a ``LEAF_BATCH`` search: descend before the
+    last walk of each round of ``ROUND_SNAPSHOTS`` (the round's earlier
+    walks' children pending), backup at the round's first backup (the
+    later walks' children pending), each snapshot asserted to hold pending
+    children; timed at the last round. Returns (max errors, timings)."""
+    gen = torch.Generator(device).manual_seed(SEED + 22)
+    roots = random_openings(env, batch, 6, gen, device)
+    tt = init_tree_t(env, roots, sims + 2, spec.value_size)
+    errs = {"descend": 0.0, "backup": 0.0}
+    timing, seen = {}, {"walk": 0, "backup": 0, "pending": []}
+    walk, backup = S.descend_batched_t, S.backup_batched_t
+
+    def held_walk(t, sp):
+        seen["walk"] += 1
+        rnd, i = divmod(seen["walk"] - 1, LEAF_BATCH)  # slot = seen["walk"]
+        if i == LEAF_BATCH - 1 and rnd in ROUND_SNAPSHOTS:
+            pend = pending_children(t)
+            check(pend > 0, f"round {rnd}: no pending child before its last "
+                  "walk")
+            seen["pending"].append(("descend", rnd, pend))
+            cols = _descend_inputs(t)
+            where = (f"at N={t.parent.shape[0]}, B={batch}, mid-round {rnd} "
+                     f"({pend} pending children)")
+            errs["descend"] = max(errs["descend"],
+                                  compare_descend(cols, sp, where))
+            if rnd == ROUND_SNAPSHOTS[-1]:
+                timing["descend"] = time_descend(cols, sp, device, reps)
+        return walk(t, sp)
+
+    def held_backup(t, values, sp):
+        slot = seen["backup"]
+        seen["backup"] += 1
+        rnd, i = divmod(slot - 1, LEAF_BATCH)
+        if slot > 0 and i == 0 and rnd in ROUND_SNAPSHOTS:
+            pend = pending_children(t, skip_leaf=True)
+            check(pend > 0, f"round {rnd}: no pending child at its first "
+                  "backup")
+            seen["pending"].append(("backup", rnd, pend))
+            args = (t.parent, t.player, t.leaf, values, t.max_depth)
+            where = (f"at N={t.parent.shape[0]}, B={batch}, mid-round {rnd} "
+                     f"({pend} other pending children)")
+            errs["backup"] = max(errs["backup"], compare_backup(
+                args, (t.n, t.q, t.v), sp, where))
+            if rnd == ROUND_SNAPSHOTS[-1]:
+                timing["backup"] = time_backup(args, (t.n, t.q, t.v), sp,
+                                               device, reps)
+        return backup(t, values, sp)
+
+    with _Patched(S, "descend_batched_t", held_walk), \
+            _Patched(S, "backup_batched_t", held_backup):
+        S.search(env, tt, spec, eval_fn, sims, gen, leaf_batch=LEAF_BATCH)
+    check(seen["walk"] == sims - 1 and seen["backup"] == sims
+          and len(seen["pending"]) == 2 * len(ROUND_SNAPSHOTS),
+          f"rounds: {seen['walk']} walks, {seen['backup']} backups, "
+          f"snapshots {seen['pending']}")
+    check(bool((tt.n[0] == sims).all()), "rounds: root visits != sims")
+    log(f"  {batch} games x {sims} sims at leaf_batch {LEAF_BATCH}: both "
+        f"kernels bit-equal mid-round, pending children {seen['pending']}")
+    return errs, timing
+
+
+def _flat_plan(sims, rows, min_nodes=32):
+    return [(rows, 1, sims)]
+
+
+def segment_phase(env, spec, batch: int, sims: int, device,
+                  reps: int = 50) -> tuple:
+    """Phase 29, game-minor: a fresh search of ``sims`` simulations on
+    ``batch`` games (a table evaluation: the same numbers in every run)
+    run three times: segmented with both kernels held against their plain
+    versions at the last simulation of every segment and timed at each
+    slice (N < sims + 3); segmented under torch.profiler; flat (one
+    segment) under torch.profiler. Every TreeT field bit-equal among the
+    three; the segmented search's launches by tree rows those of the plan;
+    each kernel's device ms a simulation segmented and flat. Returns (max
+    errors, {N: timings}, device ms)."""
+    eval_fn = table_eval_fn(env, spec.value_size)
+    roots = random_openings(env, batch, 6, torch.Generator(
+        device).manual_seed(SEED + 23), device)
+    rows = sims + 3
+    plan = S._segment_plan(sims, rows)
+    last_of = {hi - 1: n for n, _, hi in plan}
+    errs = {"descend": 0.0, "backup": 0.0}
+    timing = {}
+
+    def search(gen_seed):
+        tt = init_tree_t(env, roots, sims + 2, spec.value_size)
+        S.search(env, tt, spec, eval_fn, sims,
+                 torch.Generator(device).manual_seed(gen_seed))
+        return tt
+
+    walk, backup = S.descend_batched_t, S.backup_batched_t
+    seen = {"walk": 0, "backup": 0}
+
+    def held_walk(t, sp):
+        seen["walk"] += 1
+        n = last_of.get(seen["walk"])
+        if n is not None:
+            check(t.parent.shape[0] == n, f"slot {seen['walk']}: a tree of "
+                  f"{t.parent.shape[0]} rows, the plan gives {n}")
+            cols = _descend_inputs(t)
+            errs["descend"] = max(errs["descend"], compare_descend(
+                cols, sp, f"in the segment of N={n}, B={batch}"))
+            if n < rows:
+                timing.setdefault(n, {})["descend"] = time_descend(
+                    cols, sp, device, reps)
+        return walk(t, sp)
+
+    def held_backup(t, values, sp):
+        n = last_of.get(seen["backup"])
+        seen["backup"] += 1
+        if n is not None:
+            args = (t.parent, t.player, t.leaf, values, t.max_depth)
+            errs["backup"] = max(errs["backup"], compare_backup(
+                args, (t.n, t.q, t.v), sp, f"in the segment of N={n}"))
+            if n < rows:
+                timing.setdefault(n, {})["backup"] = time_backup(
+                    args, (t.n, t.q, t.v), sp, device, reps)
+        return backup(t, values, sp)
+
+    with _Patched(S, "descend_batched_t", held_walk), \
+            _Patched(S, "backup_batched_t", held_backup):
+        held = search(SEED + 24)
+    check(seen["walk"] == sims - 1, "segments: walks != sims - 1")
+    cuda = torch.device(device).type == "cuda"
+    ms, trees, launches = {}, {}, {}
+    for name, plan_fn in (("segmented", S._segment_plan),
+                          ("flat", _flat_plan)):
+        with _Patched(S, "_segment_plan", plan_fn):
+            sync(device)
+            reset_counts()
+            ms[name] = {}
+            if cuda:
+                with torch.profiler.profile(activities=PROFILED) as prof:
+                    trees[name] = search(SEED + 24)
+                    sync(device)
+                ms[name] = {k: sum(e.self_device_time_total for e in
+                                   _device_kernels(prof) if k in e.key)
+                            / 1e3 / sims
+                            for k in ("descend_kernel", "backup_kernel")}
+            else:
+                trees[name] = search(SEED + 24)
+            launches[name] = read_counts_by_rows()
+    _same_fields(trees["segmented"], trees["flat"],
+                 "segmented search against flat")
+    _same_fields(held, trees["flat"], "held segmented search against flat")
+    if cuda:
+        got = {k: launches["segmented"][k] for k in ("descend", "backup")}
+        want = fresh_launches_by_rows(SelfPlayConfig(sims_full=sims),
+                                      [("full", sims)])
+        check(got == want, f"segmented search: launches by tree rows {got}"
+              f" != the plan's {want}")
+    log(f"  {batch} games x {sims} sims, plan {plan}: every TreeT field "
+        "bit-equal to the flat loop's; both kernels bit-equal at N = "
+        f"{sorted(last_of.values())}")
+    for k in ("descend_kernel", "backup_kernel"):
+        if ms["flat"]:
+            log(f"  {k}: {ms['segmented'][k]:.5f} ms of device time a "
+                f"simulation segmented, {ms['flat'][k]:.5f} flat "
+                f"({ms['segmented'][k] / ms['flat'][k]:.3f}x)")
+    return errs, timing, ms
+
+
+def player_segment_phase(device, sims: int,
+                         timed: int = PLAYER_TIMED_MOVES) -> dict:
+    """Phase 29, batch-major: an MCTSPlayer move over a random preset-width
+    connect4 checkpoint (the pit's) and a rawmcts move, each at ``sims``
+    simulations (N = sims + 3), segmented (both rows kernels held against
+    their plain versions at the last simulation of every segment) and
+    flat: every tree field but the sink row equal, and the same move.
+    cuDNN is held deterministic, so that both moves' networks give the
+    same numbers. Then ``timed`` moves of each layout, none held, in turns
+    (segmented, flat, flat, segmented, ...), and the host's time of the
+    slices' copies and merges of one move. Returns {player: {"segmented"
+    / "flat": ms of each timed move, "slices_host": ms}}."""
+    from alphazero_general_tpu_torch.players.players import MCTSPlayer, \
+        RawMCTSPlayer
+
+    env = get_env("connect4")
+    args = preset_args("connect4", seed=SEED, numMCTSSims=sims)
+    net = NNetWrapper(env, args, device=device)
+    with tempfile.TemporaryDirectory() as root:
+        net.save_checkpoint(root, "iteration-0001")
+        net = NNetWrapper.from_checkpoint(env, root, "iteration-0001",
+                                          device=device)
+    state = random_openings(env, 1, 6, torch.Generator(
+        device).manual_seed(SEED + 25), device)
+    plan = S._segment_plan(sims, sims + 3)
+    last_of = {hi - 1: n for n, _, hi in plan}
+    plans = {"segmented": S._segment_plan, "flat": _flat_plan}
+    walk, backup = S.descend_batched, S.backup_batched
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for kind in ("mcts", "rawmcts"):
+            def make():
+                if kind == "mcts":
+                    return MCTSPlayer(net, env, args, device=device)
+                return RawMCTSPlayer(env, args, device=device)
+
+            seen = {"walk": 0, "backup": 0, "held": []}
+
+            def held_walk(tree, sp):
+                n = last_of.get(seen["walk"])
+                seen["walk"] += 1
+                if n is not None:
+                    check(tree.parent.shape[1] == n, "a slice of "
+                          f"{tree.parent.shape[1]} rows, the plan gives {n}")
+                    eany = (tree.e > 0).any(dim=-1).to(torch.float32)
+                    compare_descend(
+                        (tree.parent, tree.parent_action, tree.n, tree.q,
+                         tree.v, tree.edge_prior, eany, tree.nba, tree.nbp),
+                        sp, f"{kind}, a slice of N={n}", rows=True)
+                    seen["held"].append(n)
+                return walk(tree, sp)
+
+            def held_backup(tree, values, sp):
+                n = last_of.get(seen["backup"])
+                seen["backup"] += 1
+                if n is not None:
+                    compare_backup(
+                        (tree.parent, tree.player, tree.leaf, values,
+                         tree.max_depth), (tree.n, tree.q, tree.v), sp,
+                        f"{kind}, a slice of N={n}", rows=True)
+                return backup(tree, values, sp)
+
+            make().play(state)  # warm-up: the allocator, cuDNN
+            seg, flat = make(), make()
+            with _Patched(S, "descend_batched", held_walk), \
+                    _Patched(S, "backup_batched", held_backup):
+                move = seg.play(state)
+            with _Patched(S, "_segment_plan", _flat_plan):
+                check(flat.play(state) == move, f"{kind}: the segmented "
+                      "move differs from the flat move")
+            _same_fields(seg.last_tree, flat.last_tree,
+                         f"{kind} move segmented against flat",
+                         skip_sink=True)
+            check(sorted(set(seen["held"])) == sorted(set(last_of.values())),
+                  f"{kind}: rows kernels held at {seen['held']}")
+            ms = {"segmented": [], "flat": []}
+            for name in ("segmented", "flat", "flat", "segmented") * (
+                    timed // 2):
+                player = make()
+                with _Patched(S, "_segment_plan", plans[name]):
+                    sync(device)
+                    t0 = time.perf_counter()
+                    player.play(state)
+                    sync(device)
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+            tree = seg.last_tree
+
+            def slices():  # what the segments add to a move
+                for n, _, _ in plan[:-1]:
+                    T.merge_batched_rows(tree, T.slice_batched_rows(tree, n))
+
+            ms["slices_host"] = host_ms(slices, 20, device)
+            out[kind] = ms
+            log(f"  {kind} move, {sims} simulations, plan {plan}: equal to "
+                f"the flat move but the sink row (action {move}); rows "
+                f"kernels bit-equal at N = {sorted(set(seen['held']))}; ms "
+                "a move in turns: " + "; ".join(
+                    f"{name} mean {np.mean(v):.1f} (min {min(v):.1f}, max "
+                    f"{max(v):.1f}; " + ", ".join(f"{x:.1f}" for x in v)
+                    + ")" for name, v in ms.items() if name != "slices_host")
+                + f"; the slices' copies and merges {ms['slices_host']:.3f} "
+                "ms of host time a move")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def search_layer_phases(device, smi: str, by_rows: dict = None) -> list:
+    """Phases 26-30; returns the game-minor kernels' records under rounds
+    and at the segment slices. A slice's record takes its launches from
+    ``by_rows``, the connect4 Coach phase's launches by tree rows (on the
+    CPU, where nothing launches, none)."""
+    env = get_env("connect4")
+    args = get_args(seed=SEED, numMCTSSims=SIMS_FULL, numFastSims=SIMS_FAST,
+                    **MODEL)
+    cfg = SelfPlayConfig.from_args(args, env.NUM_PLAYERS, env.HAS_DRAW)
+    net = NNetWrapper(env, args, device=device)
+
+    t0 = time.perf_counter()
+    multileaf_reference_phase(env, device, **LEAF_REFERENCE)
+    log(f"phase multi-leaf reference: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    lp = multileaf_selfplay_phase(env, net.model, cfg, GAMES, device)
+    many, one = lp[LEAF_BATCH], lp[1]
+    rate = {k: sum(v["sims_per_s"]) / len(v["sims_per_s"])
+            for k, v in lp.items()}
+    log(f"  multi-leaf self-play at the preset, runs in turns: "
+        f"{rate[LEAF_BATCH]:,.0f} sims/s at leaf_batch {LEAF_BATCH} "
+        f"({', '.join(f'{x:,.0f}' for x in many['sims_per_s'])}), "
+        f"{rate[1]:,.0f} at 1 "
+        f"({', '.join(f'{x:,.0f}' for x in one['sims_per_s'])}): "
+        f"{rate[LEAF_BATCH] / rate[1]:.3f}x; kernel launches "
+        f"a simulation {many['launches_per_sim']:.1f} and "
+        f"{one['launches_per_sim']:.1f}; peak memory "
+        f"{many['peak_bytes'] / 2**30:.2f} and "
+        f"{one['peak_bytes'] / 2**30:.2f} GiB; card: {smi}")
+    log(f"phase multi-leaf self-play: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    errs, rounds_t = rounds_kernel_phase(env, net.make_eval_fn(), cfg.spec,
+                                         GAMES, SIMS_FULL, device)
+    for k in ("descend", "backup"):
+        log_timing(k, rounds_t[k])
+    log(f"phase kernels under rounds: {time.perf_counter() - t0:.1f} s")
+    records = [kernel_record(f"{k}@connect4_rounds", k, rounds_t[k],
+                             lp[LEAF_BATCH]["launches"][k], errs[k])
+               for k in ("descend", "backup")]
+
+    t0 = time.perf_counter()
+    errs, seg_t, seg_ms = segment_phase(env, cfg.spec, GAMES, SIMS_FULL,
+                                        device)
+    cuda = torch.device(device).type == "cuda"
+    for n, t in sorted(seg_t.items()):
+        for k in ("descend", "backup"):
+            log_timing(k, t[k])
+            rows = (by_rows or {}).get(k, {})
+            check(rows.get(n, 0) > 0 or not cuda,
+                  f"{k} ran on no tree of {n} rows in the Coach phase: "
+                  f"{rows}")
+            records.append(kernel_record(f"{k}@connect4_seg_n{n}", k, t[k],
+                                         rows.get(n, 0), errs[k], rows))
+    pl = player_segment_phase(device, SIMS_FULL)
+    log(f"  card: {smi}")
+    log(f"phase segments: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        co = coach_phase(device, root, dict(LEAF_COACH_CUTS, numIters=1),
+                         resume=dict(LEAF_COACH_CUTS, numIters=2))
+    log_coach(co, smi)
+    check(co["iters"][2]["int8"]["self_play"] == 1.0,
+          "multi-leaf coach: iteration 2 did not play the int8 network")
+    log(f"phase multi-leaf coach: {time.perf_counter() - t0:.1f} s")
+    return records, dict(leaf_batch=LEAF_BATCH, sims_per_s={
+        k: v["sims_per_s"] for k, v in lp.items()},
+        launches_per_sim={k: v["launches_per_sim"] for k, v in lp.items()},
+        peak_bytes={k: v["peak_bytes"] for k, v in lp.items()},
+        segment_ms=seg_ms, player_ms=pl, coach_wall=co["wall"])
+
+
 def main() -> int:
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -2788,17 +3469,20 @@ def main() -> int:
     log(f"  a one-element fill: {launch_floor_ms(device):.4f} ms of device "
         "time per launch (the least a kernel takes)")
 
-    records, c4_int8 = connect4_phases(device, smi)
+    records, c4_int8, c4_by_rows = connect4_phases(device, smi)
     tafl_records, tafl_int8 = tafl_phases(device, smi)
     env_records = env_phases(device, smi)
     player_records = player_phases(device, smi)
+    search_records, search_layer = search_layer_phases(device, smi,
+                                                       c4_by_rows)
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
     log(json.dumps({"int8_tower": {"connect4": c4_int8,
                                    "hnefatafl": tafl_int8, "card": smi}}))
+    log(json.dumps({"search_layer": dict(search_layer, card=smi)}))
     log(smi)
     log(json.dumps({"kernels": records + tafl_records + env_records
-                    + player_records}))
+                    + player_records + search_records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": device_count}}))
     return 0

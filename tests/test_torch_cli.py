@@ -78,19 +78,37 @@ def test_args_files_round_trip_between_packages(tmp_path):
     assert cfg.const_temp
 
 
-@pytest.mark.parametrize("knob", [
-    dict(leaf_batch=2), dict(mesh_batch_axis=4),
+@pytest.mark.parametrize("knob,raises", [
+    (dict(leaf_batch=2), False), (dict(mesh_batch_axis=4), True),
 ], ids=["leaf_batch", "multi_device"])
-def test_unported_knobs_raise(knob, tmp_path):
+def test_unported_knobs_raise(knob, raises, tmp_path):
+    """More than one device raises in the Coach and in ``cli.train``;
+    ``leaf_batch`` > 1 (multi-leaf rounds) is ported: the Coach takes it
+    into its self-play config, and a cut ``cli.train`` cycle runs with
+    it."""
     args = C.get_args(**dict(TINY, **knob), **_dirs(str(tmp_path), "x"))
     env = get_env("connect4")
-    with pytest.raises(ValueError, match="not ported"):
-        Coach(env, NNetWrapper(env, C.get_args(**TINY), device="cpu"), args)
+    net = NNetWrapper(env, C.get_args(**TINY), device="cpu")
     argv = ["connect4", "--device", "cpu"]
     for k, v in knob.items():
         argv += ["--set", f"{k}={v!r}"]
-    with pytest.raises(ValueError, match="not ported"):
-        cli_train.main(argv)
+    if raises:
+        with pytest.raises(ValueError, match="not ported"):
+            Coach(env, net, args)
+        with pytest.raises(ValueError, match="not ported"):
+            cli_train.main(argv)
+        return
+    assert Coach(env, net, args)._cfg.leaf_batch == knob["leaf_batch"]
+    cut = {k: v for k, v in TINY.items() if k != "seed"}
+    cut.update(numIters=1, numWarmupIters=0, numMCTSSims=6, numFastSims=3,
+               **_dirs(str(tmp_path), "lb"))
+    for k, v in cut.items():
+        argv += ["--set", f"{k}={v!r}"]
+    assert cli_train.main(argv) == 0
+    assert (tmp_path / "data" / "lb" / "iteration-0001.npz").is_file()
+    saved = C.load_args_file(str(tmp_path / "checkpoint" / "lb" /
+                                 "iteration-0001.json"))
+    assert saved.leaf_batch == knob["leaf_batch"]
 
 
 @pytest.mark.parametrize("knob,int8", [

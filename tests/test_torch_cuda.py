@@ -15,6 +15,8 @@ there without tests/conftest.py (which imports JAX):
     python -m pytest --noconftest -q -m gpu tests/test_torch_cuda.py
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -961,3 +963,216 @@ def test_cuda_evaluator_tick_never_waits_for_the_device():
         torch.cuda.set_sync_debug_mode("default")
     assert ev._publish(tree, 16, 0.0, running=False) >= 1
     assert ev.analysis.sims == 16 and sum(ev.analysis.policy) == 1.0
+
+
+# --------------------------------------------------------------------------
+# The search layer: multi-leaf rounds and growing-arena segments
+# --------------------------------------------------------------------------
+
+def _fixed_draws(batch, sims, seed=5):
+    """Tie and root-noise draws made on the CPU, the same on any device."""
+    rng = np.random.default_rng(seed)
+    return S.SearchDraws(
+        tie=torch.from_numpy(rng.random((sims, batch, 7)).astype(np.float32)),
+        gammas=torch.from_numpy(rng.gamma(1.5, size=(batch, 7)).astype(
+            np.float32)))
+
+
+def _on(draws, dev):
+    return S.SearchDraws(tie=draws.tie.to(dev), gammas=draws.gammas.to(dev))
+
+
+def _hold_columns(tt, values, spec, walk: bool):
+    """The game-minor descend (``walk``) or backup kernel bit for bit
+    against its plain version on the TreeT ``tt``, the backup from the
+    leaf values ``values``."""
+    cols = [getattr(tt, c) for c in COLUMNS]
+    if walk:
+        got = OD.descend_columns(*cols, spec)
+        torch.cuda.synchronize()
+        want = OD.descend_plain(*cols, spec.cpuct, spec.fpu_reduction)
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w))
+        return
+    args = (tt.parent, tt.player, tt.leaf, values, tt.max_depth)
+    k_nqv = [tt.n.clone(), tt.q.clone(), tt.v.clone()]
+    p_nqv = [x.clone() for x in k_nqv]
+    OB.backup_columns_(*args, *k_nqv, spec)
+    torch.cuda.synchronize()
+    OB.backup_plain_(*args, *p_nqv, spec)
+    for g, w in zip(k_nqv, p_nqv):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+def _held_search(monkeypatch, dev, batch, sims, leaf_batch):
+    """A connect4 fresh search on the card with both game-minor kernels
+    held against their plain versions before every walk and backup;
+    returns (the TreeT, the tree sizes held, the pending children seen
+    before each walk)."""
+    spec = SearchSpec(**SPEC_KW)
+    walk, backup = S.descend_batched_t, S.backup_batched_t
+    sizes, pending = set(), []
+
+    def held_walk(tt, sp):
+        sizes.add(tt.parent.shape[0])
+        pending.append(int(((tt.parent[:-1] >= 0) & (tt.n[:-1] == 0)).sum()))
+        _hold_columns(tt, None, sp, walk=True)
+        return walk(tt, sp)
+
+    def held_backup(tt, values, sp):
+        _hold_columns(tt, values, sp, walk=False)
+        return backup(tt, values, sp)
+
+    monkeypatch.setattr(S, "descend_batched_t", held_walk)
+    monkeypatch.setattr(S, "backup_batched_t", held_backup)
+    env = get_env("connect4")
+    tt = init_tree_t(env, _openings(batch, dev), sims + 2, 3)
+    S.search(env, tt, spec, _eval_fn, sims,
+             draws=_on(_fixed_draws(batch, sims), dev),
+             leaf_batch=leaf_batch)
+    assert (tt.n[0] == sims).all()
+    return tt, sizes, pending
+
+
+@pytest.mark.gpu
+def test_cuda_multileaf_search_matches_cpu():
+    """A search of 8-leaf rounds (39 simulations after the root's: 4 rounds
+    and 7 single) with root and tie noise from fixed draws, on the card
+    against the CPU: counts, n and links equal, q and v within 1e-6."""
+    dev = _cuda()
+    env = get_env("connect4")
+    spec = SearchSpec(**dict(SPEC_KW, add_root_noise=True,
+                             add_root_temp=True))
+    draws = _fixed_draws(256, 40)
+    trees = []
+    for d in (dev, "cpu"):
+        tt = init_tree_t(env, _openings(256, d), 42, 3)
+        trees.append(S.search(env, tt, spec, _eval_fn, 40,
+                              draws=_on(draws, d), leaf_batch=8))
+    got, want = trees
+    for name in ("n", "parent", "parent_action"):
+        assert torch.equal(getattr(got, name)[:-1].cpu(),
+                           getattr(want, name)[:-1]), name
+    for name in ("q", "v"):
+        torch.testing.assert_close(getattr(got, name)[:-1].cpu(),
+                                   getattr(want, name)[:-1], rtol=1e-6,
+                                   atol=1e-6)
+    assert torch.equal(T.counts(got).cpu(), T.counts(want))
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_under_rounds(monkeypatch):
+    """Both game-minor kernels bit for bit at every walk and backup of an
+    8-leaf search on the card, among them walks that meet pending
+    children (allocated earlier in the round, not yet backed up)."""
+    _, sizes, pending = _held_search(monkeypatch, _cuda(), 256, 40, 8)
+    assert sizes == {43}
+    assert max(pending) > 0
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_at_segment_shapes(monkeypatch):
+    """Both game-minor kernels bit for bit at every walk and backup of a
+    segmented 200-simulation search on the card: the slices of N = 32,
+    64 and 128 rows and the whole tree of 203."""
+    _, sizes, pending = _held_search(monkeypatch, _cuda(), 256, 200, 1)
+    assert sizes == {32, 64, 128, 203}
+    assert max(pending) == 0  # one leaf a network call: nothing pending
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 7])
+def test_cuda_rows_kernels_match_plain_at_batch_major_slices(B, monkeypatch):
+    """Both batch-major kernels bit for bit at every walk and backup of a
+    segmented 200-simulation fresh batch-major search on the card (the
+    players' search, B = 1; and 7 games): on the contiguous slices of 32,
+    64 and 128 rows and on the whole tree."""
+    dev = _cuda()
+    spec = SearchSpec(**SPEC_KW)
+    walk, backup = S.descend_batched, S.backup_batched
+    sizes = set()
+
+    def held_walk(tree, sp):
+        sizes.add(tree.parent.shape[1])
+        eany = (tree.e > 0).any(dim=-1).to(torch.float32)
+        cols = [eany if c == "eany" else getattr(tree, c) for c in COLUMNS]
+        got = OD.descend_rows(*cols, sp)
+        torch.cuda.synchronize()
+        want = OD.descend_plain(*(c.t() for c in cols), sp.cpuct,
+                                sp.fpu_reduction)
+        for g, w in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w))
+        return walk(tree, sp)
+
+    def held_backup(tree, values, sp):
+        _hold_rows(dict(parent=tree.parent, parent_action=tree.parent_action,
+                        n=tree.n, q=tree.q, v=tree.v,
+                        edge_prior=tree.edge_prior,
+                        eany=(tree.e > 0).any(dim=-1).to(torch.float32),
+                        nba=tree.nba, nbp=tree.nbp, player=tree.player,
+                        leaf=tree.leaf, value=values,
+                        max_depth=tree.max_depth), sp)
+        return backup(tree, values, sp)
+
+    monkeypatch.setattr(S, "descend_batched", held_walk)
+    monkeypatch.setattr(S, "backup_batched", held_backup)
+    env = get_env("connect4")
+    tree = S.init_batched_trees(env, _openings(B, dev), 202, 3)
+    S.search(env, tree, spec, _eval_fn, 200,
+             draws=_on(_fixed_draws(B, 200), dev))
+    assert sizes == {32, 64, 128, 203}
+    assert (tree.n[:, 0] == 200).all()
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_count_launches_by_tree_rows():
+    """Each game-minor wrapper counts its launches by the tree's rows: a
+    segmented 200-simulation search walks 30 / 32 / 64 / 73 times on 32 /
+    64 / 128 / 203 rows, and backs up once more on the whole tree (the
+    root's expansion)."""
+    dev = _cuda()
+    env = get_env("connect4")
+    before = (Counter(OD.descend_columns.launches_by_rows),
+              Counter(OB.backup_columns_.launches_by_rows))
+    tt = init_tree_t(env, _openings(64, dev), 202, 3)
+    S.search(env, tt, SearchSpec(**SPEC_KW), _eval_fn, 200,
+             draws=_on(_fixed_draws(64, 200), dev))
+    assert OD.descend_columns.launches_by_rows - before[0] == Counter(
+        {32: 30, 64: 32, 128: 64, 203: 73})
+    assert OB.backup_columns_.launches_by_rows - before[1] == Counter(
+        {32: 30, 64: 32, 128: 64, 203: 74})
+
+
+@pytest.mark.gpu
+def test_cuda_rounds_and_segments_never_wait_for_the_device():
+    """Under CUDA's sync debug mode: a segmented fresh TreeT search (40
+    simulations: slices of 32 and 43 rows), an 8-leaf search, and the
+    batch-major segment (slice, simulations, merge) make no call that
+    waits for the device. (``search`` on a batch-major tree reads its
+    allocation fronts once before the loop, by design.)"""
+    dev = _cuda()
+    env = get_env("connect4")
+    eval_fn = _table_eval(env)  # its tables stay on the card
+    spec = SearchSpec(**dict(SPEC_KW, tie_noise=1e-6))
+    roots = _openings(64, dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    S.search(env, init_tree_t(env, roots, 10, 3), spec, eval_fn, 8,
+             generator=gen, leaf_batch=4)  # warm-up: tables, allocator
+    trees = [init_tree_t(env, roots, 42, 3) for _ in range(2)]
+    tree = S.init_batched_trees(env, roots, 42, 3)
+    S.simulate_step(env, tree, spec, eval_fn, True, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        S.search(env, trees[0], spec, eval_fn, 40, generator=gen)
+        S.search(env, trees[1], spec, eval_fn, 40, generator=gen,
+                 leaf_batch=8)
+        part = T.slice_batched_rows(tree, 32)
+        for _ in range(1, 31):
+            S.simulate_step(env, part, spec, eval_fn, False, generator=gen)
+        T.merge_batched_rows(tree, part)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for tt in trees:
+        assert (tt.n[0] == 40).all()
+    assert (tree.n[:, 0] == 31).all()

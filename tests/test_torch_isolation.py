@@ -175,6 +175,41 @@ def test_chip_smoke_phases_rehearse_on_cpu():
     parts = C.breakdown_phase(env, net.make_eval_fn(), spec, 8, 4, "cpu")
     assert set(parts["host_ms"]) == set(C.STAGES)
 
+    # The search layer's phases: multi-leaf reference and self-play, the
+    # kernels mid-round and at the segments' slices, the players' moves
+    # segmented against flat.
+    C.multileaf_reference_phase(env, "cpu", batch=8, sims=20)
+    lp = C.multileaf_selfplay_phase(env, net.model, cfg._replace(
+        sims_fast=11, sims_full=20), 8, "cpu")
+    assert lp[C.LEAF_BATCH]["net_calls"] == {11: 1 + 1 + 2, 20: 1 + 2 + 3}
+    assert lp[1]["net_calls"] == {11: 11, 20: 20}
+    assert C.net_calls(200, 8) == [1] + [8] * 24 + [1] * 7
+    assert len(C.net_calls(40, 8)) == 12
+    errs, rounds_t = C.rounds_kernel_phase(env, net.make_eval_fn(), spec, 8,
+                                           200, "cpu", reps=1)
+    assert errs == {"descend": 0.0, "backup": 0.0}
+    assert rounds_t["descend"]["N"] == 203 and rounds_t["backup"]["B"] == 8
+    errs, seg_t, _ = C.segment_phase(env, spec, 8, 70, "cpu", reps=1)
+    assert errs == {"descend": 0.0, "backup": 0.0}
+    assert sorted(seg_t) == [32, 64]
+    # The launches by tree rows that the segments of a 70-simulation
+    # search make (the root's expansion backs up on all 73 rows).
+    assert C.fresh_launches_by_rows(cfg._replace(sims_full=70),
+                                    [("full", 70)]) == {
+        "descend": {32: 30, 64: 32, 73: 7}, "backup": {32: 30, 64: 32,
+                                                       73: 8}}
+    by_rows = {32: 30, 64: 32, 73: 7}
+    records = [C.kernel_record(f"{k}@seg_n{n}", k, t[k], by_rows[n],
+                               errs[k], by_rows)
+               for n, t in seg_t.items() for k in ("descend", "backup")]
+    assert [r["N"] for r in records] == [32, 32, 64, 64]
+    assert [r["launches_at_N"] for r in records] == [30, 30, 32, 32]
+    assert all(keys <= set(r) and r["bound_ms"] > 0 for r in records)
+    moves = C.player_segment_phase("cpu", 40, timed=2)
+    assert sorted(moves) == ["mcts", "rawmcts"]
+    assert all(len(m["segmented"]) == len(m["flat"]) == 2
+               and m["slices_host"] > 0 for m in moves.values())
+
 
 def test_chip_smoke_int8_phases_rehearse_on_cpu(capsys):
     """The int8 phase (quantize on calibration playouts, each tower conv
@@ -257,6 +292,31 @@ def test_chip_smoke_coach_phase_rehearses_on_cpu(tmp_path, capsys):
     net = NNetWrapper(get_env("connect4"), args, device="cpu")
     assert C.coach_shapes_phase(get_env("connect4"), net, "cpu", args) == {
         "descend": 0.0, "backup": 0.0}
+
+
+def test_chip_smoke_multileaf_coach_phase_rehearses_on_cpu(tmp_path):
+    """The multi-leaf Coach phase at a tiny size on the CPU: a warmup
+    iteration, then a resumed call whose self-play plays the iteration-1
+    network over the int8 tower at leaf_batch 4; the int8 forwards
+    counted a network call each (rounds and single simulations)."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke as C
+    finally:
+        sys.path.remove(str(REPO))
+    sets = dict(C.LEAF_COACH_CUTS, process_batch_size=4, gamesPerIteration=4,
+                numMCTSSims=11, numFastSims=6, train_batch_size=8,
+                deviceWindowRows=16384, leaf_batch=4, num_channels=8,
+                depth=1, value_head_channels=2, policy_head_channels=2,
+                value_dense_layers=[8], policy_dense_layers=[8])
+    co = C.coach_phase("cpu", str(tmp_path), dict(sets, numIters=1),
+                       resume=dict(sets, numIters=2))
+    assert co["launches"] == dict.fromkeys(C.COUNTED, 0)
+    assert sorted(co["iters"]) == [1, 2]
+    assert co["iters"][1]["int8"] == {"self_play": 0.0}
+    assert co["iters"][2]["int8"] == {"self_play": 1.0}
+    # Fewer network calls than simulations: rounds of 4 leaves.
+    assert 0 < co["int8_forwards"] < co["iters"][2]["self_play_sims"]
 
 
 def test_chip_smoke_tafl_phases_rehearse_on_cpu(tmp_path, capsys,
@@ -420,12 +480,13 @@ def test_chip_smoke_main_runs_every_phase_in_order(monkeypatch, capsys):
     monkeypatch.setattr(C, "device_phase", lambda: ("card", 1, "card, 1 W"))
     monkeypatch.setattr(C, "build_phase", lambda: None)
     monkeypatch.setattr(C, "launch_floor_ms", lambda device: 0.001)
-    groups = ("connect4", "tafl", "env", "player")
+    groups = ("connect4", "tafl", "env", "player", "search_layer")
     for group in groups:
         record = [{"name": group}]
-        result = ((record, {}) if group in ("connect4", "tafl") else record)
+        result = {"connect4": (record, {}, {}), "tafl": (record, {}),
+                  "search_layer": (record, {})}.get(group, record)
         monkeypatch.setattr(C, f"{group}_phases",
-                            lambda d, smi, g=group, r=result:
+                            lambda d, smi, *rest, g=group, r=result:
                             ran.append(g) or r)
     assert C.main() == 0 and ran == list(groups)
     lines = capsys.readouterr().out.strip().splitlines()

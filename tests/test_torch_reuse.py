@@ -440,14 +440,14 @@ def _custom_temp(cur_temp, turns, max_turns):
     ({"numWarmupSims": 250}, False),
     ({"numWarmupSims": 250, "reuse_tree": True, "mctsResetThreshold": 90},
      False),
-    ({"leaf_batch": 4}, True),
+    ({"leaf_batch": 4}, False),
     ({"temp_scaling_fn": _custom_temp}, True),
 ], ids=["defaults", "reuse", "max_tree_nodes", "warmup_sims",
         "warmup_reuse_threshold", "leaf_batch", "temp_scaling_fn"])
 def test_from_args_matches_jax_config_or_raises(overrides, raises):
     """For the same args the port's config sizes trees as the JAX package's
-    does (capacity, reuse, reset threshold, warmup sims), or raises on a
-    knob it cannot run."""
+    does (capacity, reuse, reset threshold, warmup sims) and takes its
+    leaf_batch, or raises on a knob it cannot run."""
     base = dict(numMCTSSims=120, numFastSims=30)
     args = get_args(**base, **overrides)
     if raises:
@@ -459,6 +459,7 @@ def test_from_args_matches_jax_config_or_raises(overrides, raises):
                                         True)
     assert got.capacity == want.capacity
     for name in ("sims_full", "sims_fast", "sims_warmup", "start_temp",
-                 "tree_capacity", "reuse_tree", "reset_threshold"):
+                 "tree_capacity", "reuse_tree", "reset_threshold",
+                 "leaf_batch"):
         assert getattr(got, name) == getattr(want, name), name
     assert tuple(got.spec) == tuple(want.spec)
