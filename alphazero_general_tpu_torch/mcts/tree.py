@@ -36,6 +36,8 @@ import numpy as np
 import torch
 
 from alphazero_general_tpu_torch.envs.core import state_items
+from alphazero_general_tpu_torch.parallel.mesh import draw_gamma, \
+    draw_uniform
 
 NOISE_ALPHA_RATIO = 10.83  # MCTS.pyx:20
 DRAW_VALUE = 0.5  # MCTS.pyx:21
@@ -220,7 +222,8 @@ def prior_rows(pi, valids, spec: SearchSpec, is_root=None, gammas=None,
     Random draws: ``gammas`` [B, A] are the standard Gamma(alpha) draws
     behind the Dirichlet noise (alpha = 10.83 / #valid moves of the game),
     ``tie`` [B, A] the uniform [0, 1) draws behind the tie noise. Each one
-    that is needed and not given is drawn from ``generator``.
+    that is needed and not given is drawn from ``generator`` (a
+    ``torch.Generator``, or a ``parallel.GameShard`` for a rank's games).
 
     Returns (prior f32[B, A], nba i32[B], nbp f32[B]).
     """
@@ -241,8 +244,8 @@ def prior_rows(pi, valids, spec: SearchSpec, is_root=None, gammas=None,
             if gammas is None:
                 _draws_needed("Dirichlet gamma draws", generator)
                 alpha = NOISE_ALPHA_RATIO / nvalid.to(torch.float32)
-                gammas = torch._standard_gamma(
-                    alpha.expand(B, A).contiguous(), generator=generator)
+                gammas = draw_gamma(alpha.expand(B, A).contiguous(),
+                                    generator)
             gam = torch.where(valids, gammas, 0.0)
             noise = gam / torch.clamp(gam.sum(dim=-1, keepdim=True),
                                       min=1e-30)
@@ -252,7 +255,7 @@ def prior_rows(pi, valids, spec: SearchSpec, is_root=None, gammas=None,
     if spec.tie_noise:
         if tie is None:
             _draws_needed("tie-noise draws", generator)
-            tie = torch.rand((B, A), generator=generator, device=pi.device)
+            tie = draw_uniform((B, A), generator, pi.device)
         new_prior = torch.where(valids, new_prior + tie * spec.tie_noise,
                                 new_prior)
     # Pack the valid mask into the stored row (the INVALID_PRIOR sign).

@@ -34,6 +34,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from alphazero_general_tpu_torch.parallel.mesh import global_moments, \
+    world_size
+
 
 def _inference_cache(module: nn.Module, name, sources, make):
     """``make()``, computed once and reused for as long as every tensor of
@@ -61,7 +64,10 @@ class Norm(nn.Module):
     updates its running variance with the unbiased one, so it is not used
     here), and the running statistics move by flax's momentum:
     ``running = momentum * running + (1 - momentum) * batch`` with
-    momentum 0.9 (torch's convention calls this 0.1).
+    momentum 0.9 (torch's convention calls this 0.1). Under a process
+    group of more than one rank the training statistics are the global
+    batch's (``parallel.global_moments``), as XLA's sharded BatchNorm takes
+    them.
     """
 
     def __init__(self, channels: int, eps: float = 1e-5,
@@ -78,9 +84,12 @@ class Norm(nn.Module):
         shape = (1, -1, 1, 1)
         xf = x.to(torch.float32)
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            if world_size() > 1:
+                mean, sq = global_moments(xf, (0, 2, 3))
+            else:
+                mean, sq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(
+                    dim=(0, 2, 3))
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

@@ -350,14 +350,19 @@ class QuantResNet(nn.Module):
 
 
 def quantize_resnet(model: ResNet, calib_obs: torch.Tensor,
-                    out: QuantResNet | None = None) -> QuantResNet:
+                    out: QuantResNet | None = None,
+                    reduce=None) -> QuantResNet:
     """Int8 inference of a trained BatchNorm ResNet, with static activation
     scales calibrated on ``calib_obs`` (float32 [Bc, C, H, W] on the
     model's device; JAX quant.py:159). With ``out``, its buffers are
-    re-quantized in place and it is returned. Raises ValueError for a
-    model without an int8 path."""
+    re-quantized in place and it is returned. ``reduce(maxima) ->
+    maxima``, where given, combines the calibration maxima first (the max
+    over ranks). Raises ValueError for a model without an int8 path."""
     check_quantizable(model)
-    params = quant_params(model, calibration_maxima(model, calib_obs))
+    maxima = calibration_maxima(model, calib_obs)
+    if reduce is not None:
+        maxima = reduce(maxima)
+    params = quant_params(model, maxima)
     if out is None:
         return QuantResNet(params)
     out.load_params(params)

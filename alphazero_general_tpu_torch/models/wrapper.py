@@ -20,6 +20,12 @@ alphazero/NNetWrapper.py:86-282).
   batch statistics, the optax trace as SGD's momentum buffers, and step.
 * ``quantized_inference`` builds the int8 tower (models/quant.py) from the
   current weights, the JAX package's ``quant_selfplay`` path.
+* Data parallelism (``attach_mesh``; parallel/mesh.py): rank 0's weights
+  are broadcast to every rank then and after every load, each step's
+  gradients and losses are averaged over the ranks in one ``all_reduce``
+  (each rank trains on its share of the global batch), and the int8
+  tower's calibration maxima are the maxima over the ranks, so every rank
+  quantizes to the same scales.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from alphazero_general_tpu_torch.models.architectures import build_model
+from alphazero_general_tpu_torch.parallel import mesh as M
 from alphazero_general_tpu_torch.utils.config import (
     Args, get_args, load_args_file, save_args_file,
 )
@@ -82,8 +89,19 @@ class NNetWrapper:
         self.quant_model = None
         self._sym_env = None
         self._window_mode = False
+        #: Set by ``attach_mesh``: training runs data-parallel.
+        self.mesh = False
         self.l_pi = 0.0
         self.l_v = 0.0
+
+    def attach_mesh(self) -> None:
+        """Train data-parallel over the process group (JAX
+        wrapper.py:92-107): rank 0's weights and statistics on every rank
+        now and after every load, gradients averaged over the ranks before
+        each optimizer step."""
+        self.mesh = M.is_distributed()
+        if self.mesh:
+            M.replicate_module(self.model)
 
     def load_jax_variables(self, variables) -> None:
         """Load flax ``{"params", "batch_stats"}`` (numpy leaves) converted
@@ -125,9 +143,12 @@ class NNetWrapper:
             calib_obs = calibration_observations(
                 self.env, generator=generator, actions=actions,
                 device=self.device)
+        # Data-parallel: the scales are those of every rank's calibration
+        # set (each calibration maximum is the max over the ranks).
         self.quant_model = quantize_resnet(
             self.model, calib_obs.to(self.device, torch.float32),
-            out=self.quant_model)
+            out=self.quant_model,
+            reduce=M.all_reduce_max if self.mesh else None)
         return self.quant_model
 
     # ----------------------------------------------------------------- train
@@ -184,6 +205,9 @@ class NNetWrapper:
             * float(self.args.value_loss_weight)
         self.optimizer.zero_grad(set_to_none=True)
         (l_pi + l_v).backward()
+        if self.mesh:
+            # The global batch's mean gradient and losses.
+            l_pi, l_v = M.all_reduce_mean_(self.model, l_pi, l_v)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
@@ -270,6 +294,8 @@ class NNetWrapper:
             self._load_torch(path)
         else:
             self._load_flax(path, data)
+        if self.mesh:
+            M.replicate_module(self.model)
 
     def _load_torch(self, path: str) -> None:
         try:

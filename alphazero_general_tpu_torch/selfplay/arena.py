@@ -23,6 +23,14 @@ the same games.
 Finished games stay frozen (their searches are discarded), and the host
 checks every 4 rounds whether all games are done. Nothing is compiled, so
 there is no cache of per-move programs to bound.
+
+Sharded (``sharded=True`` under a process group; JAX arena.py:225-266,
+328-370): each rank plays its ``rank_slice`` of the games, each game in the
+seat group its global index gives it, with the global batch's draws cut to
+its games (``parallel.GameShard``). The check that every game is done is
+the min over the ranks, so all ranks play the same rounds and leave their
+generators in step; wins, draws and game lengths are summed over the
+ranks into the ``ArenaResult``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from alphazero_general_tpu_torch.envs.core import state_items
 from alphazero_general_tpu_torch.mcts import search as S
 from alphazero_general_tpu_torch.mcts import tree as T
 from alphazero_general_tpu_torch.mcts.tree_t import init_tree_t
+from alphazero_general_tpu_torch.parallel import mesh as M
 from alphazero_general_tpu_torch.selfplay.selfplay import gumbel_noise
 
 #: Rounds between the host's checks that every game is done.
@@ -99,39 +108,50 @@ def _select_games(mask, new, old):
 @torch.inference_mode()
 def play_games_multi(env, cfg: ArenaConfig, apply_fns: Sequence[Callable],
                      num_games: int, generator=None, draws=None,
-                     device="cuda") -> ArenaResult:
+                     device="cuda", sharded: bool = False) -> ArenaResult:
     """Play ``num_games`` games between ``N = env.NUM_PLAYERS`` models;
     ``model_wins[m]`` counts the wins of ``apply_fns[m]`` (``obs -> (log_pi,
-    log_v)``). ``num_games`` must be divisible by N.
+    log_v)``). ``num_games`` must be divisible by N. With ``sharded``, this
+    rank plays its share of the ``num_games`` and the result is the
+    global one.
 
     Random draws come from ``generator``, or from ``draws(t, sims,
     valids) -> MoveDraws`` for round t where given (tests pass the JAX
-    package's).
+    package's; ``valids`` are this rank's games').
     """
     N = env.NUM_PLAYERS
     if len(apply_fns) != N:
         raise ValueError(f"need {N} apply fns, got {len(apply_fns)}")
-    B = int(num_games)
-    if B % N:
-        raise ValueError(f"num_games={B} must be divisible by "
+    total = int(num_games)
+    if total % N:
+        raise ValueError(f"num_games={total} must be divisible by "
                          f"NUM_PLAYERS={N}")
-    G = B // N
+    G = total // N
+    rows = M.rank_slice(total) if sharded else slice(0, total)
+    if sharded:
+        generator = M.shard_generator(generator, total)
+    B = rows.stop - rows.start
     A = env.ACTION_SIZE
     V = cfg.spec.value_size
     states = env.init(B, device)
+    # Each game's seat-rotation group, from its global index.
+    group = torch.arange(rows.start, rows.stop, device=device) // G
 
     def eval_grouped(obs, t):
         """Model m evaluates group (t - m) % N, whose running games have
-        its player to move."""
-        og = obs.reshape((N, G) + obs.shape[1:])
-        pi = torch.zeros((N, G, A), dtype=torch.float32, device=obs.device)
-        v = torch.zeros((N, G, V), dtype=torch.float32, device=obs.device)
+        its player to move: the rows of that group this rank holds."""
+        pi = torch.zeros((B, A), dtype=torch.float32, device=obs.device)
+        v = torch.zeros((B, V), dtype=torch.float32, device=obs.device)
         for m in range(N):
             gm = (t - m) % N
-            pm, vm = apply_fns[m](og[gm])
-            pi[gm] = torch.exp(pm).to(torch.float32)
-            v[gm] = torch.exp(vm).to(torch.float32)
-        return pi.reshape(B, A), v.reshape(B, V)
+            lo = max(gm * G, rows.start) - rows.start
+            hi = min((gm + 1) * G, rows.stop) - rows.start
+            if lo >= hi:
+                continue
+            pm, vm = apply_fns[m](obs[lo:hi])
+            pi[lo:hi] = torch.exp(pm).to(torch.float32)
+            v[lo:hi] = torch.exp(vm).to(torch.float32)
+        return pi, v
 
     def eval_all(obs, model_idx):
         """Every model evaluates the whole batch; each game keeps its own
@@ -145,8 +165,11 @@ def play_games_multi(env, cfg: ArenaConfig, apply_fns: Sequence[Callable],
             v = torch.where(sel, torch.exp(vm).to(torch.float32), v)
         return pi, v
 
+    def all_done(done) -> bool:
+        every = done.all().to(torch.int32)
+        return bool(M.all_reduce_min(every) if sharded else every)
+
     grouped = bool(getattr(env, "ALTERNATES", True)) and cfg.route_owner
-    group = torch.arange(N, device=device).repeat_interleave(G)
     done = torch.zeros((B,), dtype=torch.bool, device=device)
     result = torch.zeros((B, V), dtype=torch.float32, device=device)
     length = torch.zeros((B,), dtype=torch.int32, device=device)
@@ -176,44 +199,50 @@ def play_games_multi(env, cfg: ArenaConfig, apply_fns: Sequence[Callable],
         done = done | now_done
         states = new_states
         t += 1
-        if t % EXIT_CHECK_ROUNDS == 0 and bool(done.all()):
+        if t % EXIT_CHECK_ROUNDS == 0 and all_done(done):
             break
 
     # Seat remap: model m of group k played player (m + k) % N
     # (Arena.pyx:291-299).
-    by_group = result.reshape(N, G, V)
-    model_wins = torch.stack([
-        sum(by_group[k, :, (m + k) % N].sum() for k in range(N))
-        for m in range(N)]).cpu()
-    draws_n = float(result[:, N].sum()) if V > N else 0.0
+    totals = torch.stack(
+        [result.gather(1, ((m + group) % N)[:, None]).sum()
+         for m in range(N)]
+        + [result[:, N].sum() if V > N else result.new_zeros(()),
+           length.to(torch.float32).sum()])
+    if sharded:
+        totals = M.all_reduce_sum(totals)
+    totals = totals.cpu()
     # The jitted JAX mean multiplies the sum by the float32 reciprocal of
     # the game count; the same product keeps the average bit-identical.
-    mean_length = length.to(torch.float32).sum() * (1.0 / B)
-    return ArenaResult(model_wins=model_wins, draws=draws_n,
+    mean_length = totals[N + 1] * (1.0 / total)
+    return ArenaResult(model_wins=totals[:N].clone(),
+                       draws=float(totals[N]) if V > N else 0.0,
                        avg_game_length=float(mean_length),
-                       num_games=B, rounds=t)
+                       num_games=total, rounds=t)
 
 
 def play_games(env, cfg: ArenaConfig, apply_fn, num_games: int,
                apply_fn_b=None, generator=None, draws=None,
-               device="cuda") -> ArenaResult:
+               device="cuda", sharded: bool = False) -> ArenaResult:
     """Two-model wrapper over :func:`play_games_multi` (the gating and
     baseline arenas, Coach.py:527-590); ``apply_fn_b`` lets model B use
     another evaluation, e.g. the RawMCTS baseline. An env of other than two
     players raises, as in the JAX package."""
     return play_games_multi(env, cfg, [apply_fn, apply_fn_b or apply_fn],
                             num_games, generator=generator, draws=draws,
-                            device=device)
+                            device=device, sharded=sharded)
 
 
 def make_arena_fn(env, cfg: ArenaConfig, apply_fn, num_games: int,
-                  apply_fn_b=None, device="cuda"):
+                  apply_fn_b=None, device="cuda", sharded: bool = False):
     """Two-model arena: ``run(generator=None, draws=None) ->
-    ArenaResult``."""
+    ArenaResult``; with ``sharded``, over the ranks of the process group
+    (JAX ``make_arena_fn(mesh=)``)."""
 
     def run(generator=None, draws=None):
         return play_games(env, cfg, apply_fn, num_games, apply_fn_b,
-                          generator=generator, draws=draws, device=device)
+                          generator=generator, draws=draws, device=device,
+                          sharded=sharded)
 
     return run
 

@@ -21,6 +21,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from alphazero_general_tpu_torch.parallel import mesh as M
 from alphazero_general_tpu_torch.utils.misc import get_iter_file
 
 
@@ -304,9 +305,11 @@ class ReplayStore:
     def __init__(self, data_dir: str, run_name: str):
         self.folder = os.path.join(data_dir, run_name)
         os.makedirs(self.folder, exist_ok=True)
-        # The JAX package's multi-process runs suffix each host's files
-        # with -pN; the port runs one process.
-        self._suffix = ""
+        # Under a process group of more than one rank each rank writes and
+        # reads its own files, suffixed -p<rank> as the JAX package's
+        # hosts do (replay.py:347-354): together they partition the
+        # iteration's samples.
+        self._suffix = f"-p{M.rank()}" if M.world_size() > 1 else ""
 
     def path(self, iteration: int) -> str:
         return os.path.join(

@@ -20,8 +20,12 @@ another full search, or where it passed ``reset_threshold`` rows. With
 (``mcts.search``); searches on carried trees run one leaf, as in the JAX
 package.
 
-Not ported yet: the scanned ``play_chunk`` (its caller is the JAX
-package's multi-device path).
+``play_chunk`` runs several moves with the fast/full coin drawn on the
+device per move, the JAX package's scanned chunk as a loop on the host.
+
+Under a process group each rank plays its own games: a carry of
+``B / W`` games and a ``parallel.GameShard`` over the global batch as the
+generator, whose draws are the global batch's, cut to the rank's games.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from alphazero_general_tpu_torch.envs.core import state_items
 from alphazero_general_tpu_torch.mcts import search as S
 from alphazero_general_tpu_torch.mcts import tree as T
 from alphazero_general_tpu_torch.mcts.tree_t import init_tree_t
+from alphazero_general_tpu_torch.parallel.mesh import GameShard, draw_uniform
 from alphazero_general_tpu_torch.utils.misc import (
     TEMP_MIN, TEMP_SCALE_FACTOR, const_temp_scaling, default_temp_scaling,
 )
@@ -195,8 +200,9 @@ def _update_temps(cfg: SelfPlayConfig, temps, turns, max_turns: int):
 
 def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
     """Standard Gumbel draws, -log(-log(u)) with u uniform in [tiny, 1) — the
-    noise ``jax.random.categorical`` adds to the logits before its argmax."""
-    u = torch.rand(shape, generator=generator, device=device)
+    noise ``jax.random.categorical`` adds to the logits before its argmax.
+    ``generator`` may be a ``parallel.GameShard``."""
+    u = draw_uniform(shape, generator, device)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
 
@@ -293,6 +299,71 @@ def move_step(env, cfg: SelfPlayConfig, eval_fn, carry: SelfPlayState,
                         action=action, win_state=win, done=done, fast=fast,
                         root_visits=root_visits, tree_reset=restart)
     return carry, record
+
+
+def play_chunk(env, cfg: SelfPlayConfig, eval_fn, carry: SelfPlayState,
+               num_moves: int, generator=None, warmup: bool = False,
+               draws=None):
+    """``num_moves`` moves (JAX selfplay.py:291-299, whose scan becomes a
+    loop on the host); returns (carry, records) with every MoveRecord
+    field stacked [K, B, ...] and ``fast`` a bool[K].
+
+    Each non-warmup move searches ``cfg.sims_fast`` simulations where its
+    coin falls under ``cfg.prob_fast``, else ``cfg.sims_full``
+    (selfplay.py:208-220); the coin is a uniform draw of ``generator``,
+    read by the host (one wait a move). ``draws(k, valids) -> (fast,
+    MoveDraws)``, where given, supplies move k's coin and draws instead
+    (tests pass the JAX package's). The records are the unslimmed ones of
+    ``move_step``: obs and pi of every move, in float32."""
+    recs = []
+    for k in range(num_moves):
+        d = None
+        if draws is not None:
+            fast, d = draws(k, env.valid_moves(carry.env_state))
+        elif warmup:
+            fast = False
+        else:
+            gen = generator.generator if isinstance(generator, GameShard) \
+                else generator
+            coin = torch.rand((), generator=gen, device=carry.temps.device)
+            fast = bool(coin < cfg.prob_fast)
+        sims = cfg.sims_warmup if warmup else (
+            cfg.sims_fast if fast else cfg.sims_full)
+        carry, rec = move_step(
+            env, cfg, eval_fn, carry, sims, fast=fast, generator=generator,
+            gumbel=None if d is None else d.gumbel,
+            search_draws=None if d is None else d.search, warmup=warmup)
+        recs.append(rec)
+    fields = {}
+    for f in dataclasses.fields(MoveRecord):
+        xs = [getattr(r, f.name) for r in recs]
+        if f.name == "fast":
+            fields[f.name] = torch.tensor(xs, dtype=torch.bool)
+        elif xs[0] is None:
+            fields[f.name] = None
+        else:
+            fields[f.name] = torch.stack(xs)
+    return carry, MoveRecord(**fields)
+
+
+def make_play_chunk_fn(env, cfg: SelfPlayConfig, apply_fn, num_moves: int,
+                       warmup: bool = False):
+    """A chunk runner over a model (JAX selfplay.py:360-377):
+    ``apply_fn(obs) -> (log_pi, log_v)``; returns ``run(carry,
+    generator=None, draws=None) -> (carry, records)`` of
+    :func:`play_chunk`. The runner reads ``apply_fn``'s weights at each
+    call, so loads and gating swaps need no new runner."""
+
+    def net_eval(obs):
+        logp, logv = apply_fn(obs)
+        return torch.exp(logp), torch.exp(logv)
+
+    @torch.inference_mode()
+    def run(carry, generator=None, draws=None):
+        return play_chunk(env, cfg, net_eval, carry, num_moves,
+                          generator=generator, warmup=warmup, draws=draws)
+
+    return run
 
 
 def make_move_fns(env, cfg: SelfPlayConfig, apply_fn):

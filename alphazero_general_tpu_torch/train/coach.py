@@ -1,5 +1,6 @@
 """Coach — the training loop, the port of alphazero_general_tpu/train/
-coach.py (reference: alphazero/Coach.py:153-591), on one device.
+coach.py (reference: alphazero/Coach.py:153-591), on one device or
+data-parallel over the ranks of a process group.
 
 One iteration: self-play until ``gamesPerIteration`` games have finished
 (warmup iterations search with the uniform evaluation instead of the
@@ -30,6 +31,24 @@ function ``(t, sims, valids) -> MoveDraws`` for one arena;
 ``draws.calibration()`` takes the draw of one re-quantization (the JAX
 Coach draws a key for each) and returns a function that gives the random
 playouts' actions [moves, batch], called only where no replay calibrates.
+
+Data parallelism (parallel/mesh.py; JAX coach.py:81-99): under a process
+group of W ranks (one a device), ``process_batch_size``,
+``train_batch_size`` and both arenas' games are global and each rank
+holds 1/W of them: its games, whose draws are the global batch's cut to
+them (``parallel.GameShard``, so the games are those of one rank), its own
+sample files (``-p<rank>``), and its share of each train batch drawn from
+them. The weights stay equal on every rank (broadcast at start and after
+every load, gradients averaged, BatchNorm over the global batch), and every
+rank takes the same decisions: the fast/full coins from the numpy stream,
+seeded alike; the exit from self-play on the global finished-game count;
+the train step count (the min over the ranks); and the gating decision
+from the summed arena results. What depends on a rank's own files (the
+window and calibration subsamples, the batch order and the symmetry
+indices) draws from a stream of its own, ``np.random.default_rng([seed,
+rank])``, which keeps the shared stream in step. Rank 0 writes the
+checkpoints (the others wait at a barrier), the run state and the metrics.
+There is no device window under W > 1 (JAX coach.py:520-526).
 """
 
 from __future__ import annotations
@@ -45,6 +64,7 @@ import numpy as np
 import torch
 
 from alphazero_general_tpu_torch.models.wrapper import NNetWrapper
+from alphazero_general_tpu_torch.parallel import mesh as M
 from alphazero_general_tpu_torch.selfplay.arena import (
     ArenaConfig, make_arena_fn, raw_mcts_apply, winrates,
 )
@@ -76,14 +96,29 @@ class Coach:
         self.self_play_net = NNetWrapper(env, args, device=self.device)
         self.draws = draws
 
+        # The ranks that share games and batches (JAX coach.py:81-99); a
+        # batch size they do not divide raises.
+        self.ranks = M.usable_devices(
+            int(args.get("mesh_batch_axis", -1)),
+            int(args.process_batch_size), int(args.train_batch_size),
+            int(args.arenaCompare), int(args.arenaCompareBaseline))
+        if M.is_distributed():
+            if M.rank() == 0:
+                print(f"[mesh] data-parallel over {self.ranks} ranks")
+            self.train_net.attach_mesh()
+            self.self_play_net.attach_mesh()
+
         self.ckpt_folder = os.path.join(args.checkpoint, args.run_name)
         os.makedirs(self.ckpt_folder, exist_ok=True)
 
-        # Resume discovery (Coach.py:165-181).
+        # Resume discovery (Coach.py:165-181), on what every rank sees.
+        M.barrier()
         train_iter = args.startIter
         if args.load_model:
             networks = sorted(glob(os.path.join(self.ckpt_folder, "*.ckpt")))
-            self.args.startIter = len(networks)
+            # Every rank has counted before rank 0 writes iteration 0.
+            self.args.startIter = int(M.all_reduce_min(len(networks))) \
+                if self.ranks > 1 else len(networks)
             if self.args.startIter == 0:
                 self._save_model(self.train_net, 0)
                 self.args.startIter = 1
@@ -108,11 +143,14 @@ class Coach:
         self.games_played_iter = 0
 
         self.store = ReplayStore(args.data, args.run_name)
-        self.writer = make_writer(str(args.get("log_dir", "runs")),
-                                  args.run_name)
+        self.writer = make_writer(
+            str(args.get("log_dir", "runs")) if M.rank() == 0 else None,
+            args.run_name)
         self.tracer = PhaseTracer(self.writer,
                                   str(args.get("profile_dir", "") or ""))
         self._np_rng = np.random.default_rng(int(args.get("seed", 0)))
+        self._rank_rng = None if self.ranks == 1 else \
+            np.random.default_rng([int(args.get("seed", 0)), M.rank()])
         self.generator = torch.Generator(self.device).manual_seed(
             int(args.get("seed", 0)) + 1)
         self._cfg = SelfPlayConfig.from_args(args, env.NUM_PLAYERS,
@@ -123,8 +161,18 @@ class Coach:
         self._quant_ok = None  # tri-state: unknown / usable / unsupported
 
     # ------------------------------------------------------------- utilities
+    @property
+    def _local_rng(self) -> np.random.Generator:
+        """The stream of draws whose count depends on the rank's own files:
+        the rank's stream under W > 1, else the shared one."""
+        return self._np_rng if self._rank_rng is None else self._rank_rng
+
     def _save_model(self, net: NNetWrapper, iteration: int) -> None:
-        net.save_checkpoint(self.ckpt_folder, get_iter_file(iteration))
+        # The weights are equal on every rank: rank 0 writes, the others
+        # wait for it before they read the folder.
+        if M.rank() == 0:
+            net.save_checkpoint(self.ckpt_folder, get_iter_file(iteration))
+        M.barrier()
 
     def _load_model(self, net: NNetWrapper, iteration: int) -> None:
         net.load_checkpoint(self.ckpt_folder, get_iter_file(iteration))
@@ -142,6 +190,8 @@ class Coach:
             return {}
 
     def _save_run_state(self) -> None:
+        if M.rank() != 0:
+            return
         with open(self._run_state_path(), "w") as f:
             json.dump({"self_play_iter": self.self_play_iter,
                        "model_iter": self.model_iter,
@@ -166,8 +216,8 @@ class Coach:
             if data is not None and len(data[0]):
                 obs = data[0]
                 if len(obs) > max_obs:
-                    idx = self._np_rng.choice(len(obs), max_obs,
-                                              replace=False)
+                    idx = self._local_rng.choice(len(obs), max_obs,
+                                                 replace=False)
                     obs = obs[idx]
                 return torch.from_numpy(
                     np.asarray(obs, np.float32)).to(self.device)
@@ -178,6 +228,9 @@ class Coach:
         None where its architecture has none (then ``_quant_ok`` is False
         and the float tower plays from here on, as in the JAX Coach)."""
         calib = self._quant_calib_obs(iteration)
+        if self.ranks > 1 and not bool(M.all_reduce_min(
+                int(calib is not None))):
+            calib = None  # a rank without samples: all take the playouts
         draw = self.draws.calibration() if self.draws is not None else None
         try:
             model = net.quantized_inference(
@@ -248,7 +301,9 @@ class Coach:
         move records ``PIPE`` moves behind the newest move, so the device
         is never left waiting for it; the records stream into the
         finalizer, and the samples of games still running at the end are
-        dropped."""
+        dropped. Under W ranks each plays its ``batch / W`` games, and the
+        count read is the sum over the ranks, so all leave on the same
+        move."""
         batch = int(self.args.process_batch_size)
         target = int(self.args.gamesPerIteration)
         # Self-play uses the gated model (Coach.py:337-338).
@@ -263,8 +318,9 @@ class Coach:
             if quantized is not None:
                 model = quantized
         cfg, fns = self._cfg, self._get_move_fns(model)
-        carry = init_selfplay(self.env, batch, cfg.start_temp,
+        carry = init_selfplay(self.env, batch // self.ranks, cfg.start_temp,
                               device=self.device, cfg=cfg)
+        generator = M.shard_generator(self.generator, batch)
 
         symmetric = bool(self.args.symmetricSamples) and \
             self.env.NUM_SYMMETRIES > 1
@@ -311,7 +367,7 @@ class Coach:
                     kind, sims_of[kind],
                     self.env.valid_moves(carry.env_state))
             carry, rec = fns[kind](
-                carry, generator=self.generator,
+                carry, generator=generator,
                 gumbel=None if d is None else d.gumbel,
                 search_draws=None if d is None else d.search)
             moves += 1
@@ -320,7 +376,7 @@ class Coach:
                         rec.pi, rec.pi_idx))
             pending.append(carry.games_played)
             while len(pending) > PIPE:
-                games_done = int(pending.popleft())
+                games_done = int(self._global_sum(pending.popleft()))
                 self.games_played_iter = games_done
                 drain_round()
                 bar.suffix = f"moves {moves}"
@@ -330,7 +386,7 @@ class Coach:
                 print(f"[collect] moves={moves} games={games_done} "
                       f"open_blocks={len(fin._open)} open_rows={open_rows} "
                       f"elapsed={time.time() - start:.0f}s", flush=True)
-        games_done = int(carry.games_played)
+        games_done = int(self._global_sum(carry.games_played))
         self.games_played_iter = games_done
         bar.goto(min(games_done, target))
         bar.finish()
@@ -341,12 +397,15 @@ class Coach:
         while raw:
             drain_round()
         fin.finish()
-        n_samples = writer.close()
+        n_local = writer.close()
+        n_samples = int(self._global_sum(n_local))
         print(f"Saving {n_samples} samples ({games_done} games, "
-              f"{elapsed:.1f}s, {self.sample_time * 1000:.1f} ms/game)")
+              f"{elapsed:.1f}s, {self.sample_time * 1000:.1f} ms/game)"
+              + (f"; {n_local} in rank {M.rank()}'s file"
+                 if self.ranks > 1 else ""))
 
-        wins, draws, avg_len = game_stats_arrays(np.stack(stats_win),
-                                                 np.stack(stats_done))
+        wins, draws, avg_len = self._game_stats(np.stack(stats_win),
+                                                np.stack(stats_done))
         total = max(int(wins.sum()) + draws, 1)
         for i, w in enumerate(wins):
             credit = 0.5 * draws if self.args.use_draws_for_winrate else 0.0
@@ -368,6 +427,23 @@ class Coach:
         self.writer.add_scalar("self_play/int8",
                                float(model is net.quant_model), iteration)
 
+    def _global_sum(self, x):
+        """``x`` summed over the ranks (itself on one rank)."""
+        return M.all_reduce_sum(x) if self.ranks > 1 else x
+
+    def _game_stats(self, win, done):
+        """``game_stats_arrays`` of the global batch: wins and draws summed
+        over the ranks, the mean game length weighted by their finished
+        games."""
+        wins, draws, avg_len = game_stats_arrays(win, done)
+        if self.ranks == 1:
+            return wins, draws, avg_len
+        n = float(np.asarray(done).sum())
+        tot = M.all_reduce_sum(torch.tensor(
+            [*wins, draws, avg_len * n, n], dtype=torch.float64)).numpy()
+        V = len(wins)
+        return tot[:V], int(tot[V]), float(tot[V + 1] / max(tot[V + 2], 1))
+
     # -------------------------------------------------------------- training
     def train(self, iteration: int) -> None:
         """Train over the growing history window (Coach.py:437-525)."""
@@ -385,9 +461,11 @@ class Coach:
         # train step applies one random symmetry per sample on the device.
         device_sym = sym_env is not None and bool(
             self.args.get("deviceSymmetries", True))
-        # Device-resident window (default on): iterations are uploaded to a
-        # ring on the device once; each step ships only row indices.
+        # Device-resident window (default on, one rank only): iterations
+        # are uploaded to a ring on the device once; each step ships only
+        # row indices.
         use_window = (bool(self.args.get("deviceWindow", True))
+                      and self.ranks == 1
                       and (sym_env is None or device_sym))
         data = None
         if use_window:
@@ -412,15 +490,17 @@ class Coach:
                 first, iteration,
                 max_samples=int(self.args.get("maxWindowSamples",
                                               4_000_000)),
-                rng=self._np_rng, symmetric_env=sym_env,
+                rng=self._local_rng, symmetric_env=sym_env,
                 expand=not device_sym)
-            if data is None:
+            # Every rank skips, or none (each reads its own files).
+            if bool(M.all_reduce_max(int(data is None))):
                 print("Warning: no training data found; skipping train step")
                 return
         self.train_net.set_device_symmetries(sym_env if device_sym else None)
         self.train_net.set_device_window(use_window)
 
-        batch_size = int(self.args.train_batch_size)
+        # Each rank's share of the global train batch.
+        batch_size = int(self.args.train_batch_size) // self.ranks
         # Sample counts in training units (raw files count times the
         # symmetry group), from file metadata.
         counts = [m[0] for i in range(first, iteration + 1)
@@ -435,6 +515,11 @@ class Coach:
             train_steps = max(latest // batch_size, 1)
         else:
             train_steps = int(self.args.train_steps_per_iteration)
+        if self.ranks > 1:
+            # The same step count on every rank (JAX coach.py:581-586):
+            # the ranks' files differ in size.
+            train_steps = int(M.all_reduce_min(train_steps))
+            window_units = int(M.all_reduce_sum(window_units))
         n_sym = sym_env.NUM_SYMMETRIES if device_sym else 1
 
         if use_window:
@@ -467,9 +552,10 @@ class Coach:
 
             def batches():
                 while True:
-                    for b in batch_iterator(data, batch_size, self._np_rng):
+                    for b in batch_iterator(data, batch_size,
+                                            self._local_rng):
                         if device_sym:
-                            b = b + (self._np_rng.integers(
+                            b = b + (self._local_rng.integers(
                                 0, n_sym, size=len(b[0]), dtype=np.int32),)
                         yield b
 
@@ -482,7 +568,7 @@ class Coach:
         self.loss_pi, self.loss_v = self.train_net.train(
             batches(), train_steps, iteration=iteration, callback=progress)
         bar.finish()
-        seen = train_steps * batch_size
+        seen = train_steps * batch_size * self.ranks
         self.writer.add_scalar("train/window_samples", window_units,
                                iteration)
         self.writer.add_scalar("train/samples_seen", seen, iteration)
@@ -509,7 +595,7 @@ class Coach:
               f'{chunk} iterations ({total_iters} iterations in total).')
         self.train_net.set_device_window(False)
         self.train_net.set_device_symmetries(None)
-        batch_size = int(self.args.train_batch_size)
+        batch_size = int(self.args.train_batch_size) // self.ranks
         start = 1
         for _ in range(num_chunks):
             end = min(start + chunk - 1, total_iters)
@@ -517,18 +603,21 @@ class Coach:
                 start, end,
                 max_samples=int(self.args.get("maxWindowSamples",
                                               4_000_000)),
-                rng=self._np_rng,
+                rng=self._local_rng,
                 symmetric_env=(self.env if bool(self.args.symmetricSamples)
                                and self.env.NUM_SYMMETRIES > 1 else None))
             start = end + 1
-            if data is None:
+            train_steps = 0 if data is None else max(
+                len(data[0]) // batch_size, 1)
+            if self.ranks > 1:
+                train_steps = int(M.all_reduce_min(train_steps))
+            if train_steps == 0:
                 continue
-            train_steps = max(len(data[0]) // batch_size, 1)
 
             def batches(data=data):
                 while True:
                     yield from batch_iterator(data, batch_size,
-                                              self._np_rng)
+                                              self._local_rng)
 
             self.loss_pi, self.loss_v = self.train_net.train(
                 batches(), train_steps, iteration=iteration)
@@ -558,7 +647,8 @@ class Coach:
                 apply_b = getattr(self.self_play_net, tower)
             self._arena_fns[kind, quant] = make_arena_fn(
                 self.env, cfg, getattr(self.train_net, tower), num_games,
-                apply_fn_b=apply_b, device=self.device)
+                apply_fn_b=apply_b, device=self.device,
+                sharded=self.ranks > 1)
         run = self._arena_fns[kind, quant]
         result = run(generator=self.generator,
                      draws=None if self.draws is None else self.draws.arena())

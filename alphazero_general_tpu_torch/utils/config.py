@@ -17,6 +17,7 @@ import json
 import os
 from typing import Any, Callable, Dict
 
+from alphazero_general_tpu_torch.parallel import mesh as M
 from alphazero_general_tpu_torch.utils.misc import (
     const_temp_scaling, default_temp_scaling, scale_temp,
 )
@@ -179,9 +180,11 @@ def check_ported(args: Args) -> None:
     """Raise ValueError on a knob whose value selects a path the port does
     not run yet, instead of falling back to another path."""
     unported = []
-    if int(args.get("mesh_batch_axis", -1)) not in (-1, 1):
-        unported.append(f"mesh_batch_axis={args.mesh_batch_axis} (one "
-                        "device only: -1 or 1)")
+    world = M.world_size()
+    if int(args.get("mesh_batch_axis", -1)) not in (-1, 1, world):
+        unported.append(f"mesh_batch_axis={args.mesh_batch_axis} (-1, 1 "
+                        f"or the world size, {world}: the ranks of a "
+                        "process group, one a device)")
     if unported:
         raise ValueError("not ported yet: " + "; ".join(unported))
 

@@ -197,9 +197,41 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    games each, no arenas), with the checks of phase 8 (the int8 forwards
    counted a network call each).
 
+31. NCCL at world size 1: ``parallel.init_distributed`` under torchrun's
+   variables (``WORLD_SIZE=1``) forms an NCCL group; 4 fresh-tree moves
+   (fast, fast, fast, full) of 2048 games through the mesh code (the
+   global batch's draws cut to the rank's games, the finished-game count
+   summed over the ranks) with both game-minor kernels launched; 20
+   float32 train steps at batch 1024 with the gradient all-reduce through
+   NCCL, equal to the same steps without a group within ``TRAIN_RTOL`` /
+   ``TRAIN_ATOL``; the NCCL kernels in one step's trace and the time of a
+   gradient all-reduce. Then the group is left.
+32. two ranks sharing the card over Gloo: two processes of this script
+   (``--rank R 2 DIR``; any rank that fails, or a run past its deadline,
+   fails the phase), each in one Gloo group (``file://`` store) on device
+   0, at the connect4 preset's width (2048 global games, 1024 a rank,
+   200 / 40 simulations, ResNet 128 x 8): both build the kernels at once
+   into one fresh folder; 4 moves over a table evaluation whose records
+   equal this process's 1-rank run's rows for each rank's games; a
+   float32 train step on each rank's half of a fixed global batch of 256,
+   the ranks bit-identical and within ``TRAIN_RTOL`` / ``TRAIN_ATOL`` of
+   the 1-rank step, and the time of a gradient all-reduce over Gloo on
+   CUDA tensors; self-play sims/s of both ranks at once (this process's
+   1-rank sims/s before and after); in each rank in turn, both game-minor
+   kernels held bit for bit mid-search (and timed) and, after two reuse
+   moves, both batch-major ones on the carried trees; then the Coach
+   through ``cli.train.main`` as ``MULTI_COACH_CUTS`` and
+   ``MULTI_RESUME_CUTS`` say (a warmup iteration, both arenas at 128
+   games, a resumed network iteration over the int8 tower). Checks: the
+   weights bit-identical on both ranks, checkpoints written by rank 0
+   alone, two sample files an iteration (``-p0``, ``-p1``) whose rows add
+   up to the samples counted, the same gating decision and fast/full
+   coins on both ranks, and each rank's kernels launched by its Coach.
+
 Before the card's line come the int8 phases' numbers
-``{"int8_tower": {...}}`` and the search layer's ``{"search_layer":
-{...}}``; the last two lines are the kernels line
+``{"int8_tower": {...}}``, the search layer's ``{"search_layer":
+{...}}`` and the multi-device phases' ``{"multi_device": {...}}``; the
+last two lines are the kernels line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``. The script
 imports nothing of JAX.
 """
@@ -208,8 +240,10 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -217,6 +251,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from alphazero_general_tpu_torch.envs import get_env
 from alphazero_general_tpu_torch.envs.core import state_items
@@ -228,12 +263,15 @@ from alphazero_general_tpu_torch.models import NNetWrapper
 from alphazero_general_tpu_torch.models import quant as Q
 from alphazero_general_tpu_torch.ops import backup as OB
 from alphazero_general_tpu_torch.ops import descend as OD
+from alphazero_general_tpu_torch.parallel import mesh as M
 from alphazero_general_tpu_torch.selfplay import (
     SelfPlayConfig, SelfPlayState, init_selfplay, make_move_fns, move_step,
 )
 from alphazero_general_tpu_torch.selfplay.arena import ArenaConfig
 from alphazero_general_tpu_torch.selfplay.device_window import DeviceWindow
+from alphazero_general_tpu_torch.selfplay.replay import ReplayStore
 from alphazero_general_tpu_torch.utils import get_args
+from alphazero_general_tpu_torch.utils.misc import get_iter_file
 from alphazero_general_tpu_torch.utils.random_tree import (
     DESCEND_COLUMNS, random_tree,
 )
@@ -294,8 +332,10 @@ RANDOM_BATCHES = (2048, 1000, 7, 1)
 BACKUP_THREADS = (32, 64, 128)
 #: Wrapper calls timed by the host clock alone, with no sync among them.
 HOST_CALLS = 1000
-#: Traces ``_trace`` takes at most for one that holds every launch.
-PROFILE_TRIES = 3
+#: Traces ``_trace`` takes at most for one that holds every launch. Late
+#: in a whole run the card's traces lose records often (0, 25 or 40 of
+#: 50 launches in a trace): three tries once kept no trace of half.
+PROFILE_TRIES = 6
 #: What torch.profiler traces: the device's kernels only. Every number
 #: taken from a trace is a kernel's; host ops would only lengthen the
 #: processing of a trace (a 200-simulation search launches about 97,000
@@ -1338,7 +1378,6 @@ def coach_phase(device, root: str, sets: dict,
     (the arenas its schedule ran, and no others), and the launch counters
     against the searches it ran."""
     from alphazero_general_tpu_torch.cli import train as cli_train
-    from alphazero_general_tpu_torch.selfplay.replay import ReplayStore
 
     env = get_env(env_name)
     args = preset_args(env_name, **(resume or sets))
@@ -3456,6 +3495,611 @@ def search_layer_phases(device, smi: str, by_rows: dict = None) -> list:
         segment_ms=seg_ms, player_ms=pl, coach_wall=co["wall"])
 
 
+# --------------------------------------------------------------------------
+# Multi-device (phases 31-32)
+# --------------------------------------------------------------------------
+
+#: The 2-rank Coach (phase 32): the connect4 preset through
+#: ``cli.train.main`` in each rank, two calls. The first runs the warmup
+#: iteration (2048 global games, 1024 a rank), then both arenas of 128
+#: games (64 a rank) at ``MULTI_ARENA_SIMS`` simulations (preset: 512
+#: games at 200; an arena's searches take ``numMCTSSims``, so the cut
+#: also sets the call's full searches, which a warmup iteration does not
+#: run) and a gate that always promotes; the second resumes the run for a
+#: network iteration at the preset's 200 / 40 simulations over the int8
+#: tower, without arenas.
+MULTI_ARENA_SIMS = 50
+MULTI_COACH_CUTS = dict(numIters=1, numWarmupIters=1, gamesPerIteration=2048,
+                        arenaCompare=128, arenaCompareBaseline=128,
+                        numMCTSSims=MULTI_ARENA_SIMS,
+                        min_next_model_winrate=0.0)
+MULTI_RESUME_CUTS = dict(numIters=2, numWarmupIters=1,
+                         gamesPerIteration=2048, compareWithBaseline=False,
+                         compareWithPast=False)
+#: Sizes of the multi-device phases: the connect4 preset's width (the
+#: CPU rehearsal in tests/test_torch_isolation.py shrinks them).
+MULTI = dict(
+    world=2, games=GAMES, sims_full=SIMS_FULL, sims_fast=SIMS_FAST,
+    model=MODEL, cycle=CYCLE,
+    # phase 31: train steps through NCCL at world size 1
+    nccl_steps=TRAIN_TIMED_STEPS, nccl_batch=1024,
+    # phase 32: the fixed global batch of the 2-rank train-step check
+    train_batch=TRAIN_CHECK_BATCH,
+    # the game-minor kernels held mid-search in each rank (timed there)
+    snapshots=(100,),
+    # reuse moves in each rank, then the batch-major kernels held on the
+    # carried trees after 20 simulations of a 40-simulation search
+    reuse_cycle=("fast", "fast"), reuse_sims=SIMS_FAST, reuse_snapshots=(20,),
+    reps=50, coach=MULTI_COACH_CUTS, resume=MULTI_RESUME_CUTS,
+    # seconds the ranks of phase 32 may take before they are killed
+    deadline=600)
+#: Gradient all-reduces timed per backend.
+ALLREDUCE_REPS = 10
+
+
+def wall_ms(fn, reps: int, device) -> float:
+    """Host milliseconds per call of ``fn``, each followed by a device
+    sync (a Gloo collective blocks the host anyway)."""
+    fn()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        sync(device)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _train_rows(env, batch: int, seed: int, device):
+    """A global train batch made from ``seed`` on the CPU (the same in
+    every process): observations of random openings, Dirichlet policies,
+    one-hot values; on ``device``."""
+    rng = np.random.default_rng(seed)
+    states = random_openings(env, batch, 12,
+                             torch.Generator().manual_seed(seed), "cpu")
+    obs = env.observation(states).to(torch.float32)
+    pi = torch.from_numpy(rng.dirichlet(np.ones(env.ACTION_SIZE), batch)
+                          .astype(np.float32))
+    value = torch.from_numpy(np.eye(3, dtype=np.float32)[
+        rng.integers(0, 3, batch)])
+    return tuple(x.to(device) for x in (obs, pi, value))
+
+
+def _log_apply(eval_fn):
+    """An apply fn (log-probabilities) over an evaluation by probabilities,
+    for ``make_move_fns``."""
+    return lambda obs: tuple(torch.log(x) for x in eval_fn(obs))
+
+
+def mesh_moves(env, apply_fn, cfg, games: int, cycle, device, seed: int):
+    """Fresh-tree moves of this rank's share of ``games`` through the mesh
+    code, as the Coach plays them: the global batch's draws cut to the
+    rank's games (``GameShard``) and the finished-game count summed over
+    the ranks after each move. Returns the records' integer fields and
+    the global count."""
+    fns = make_move_fns(env, cfg, apply_fn)
+    carry = init_selfplay(env, games // M.world_size(), device=device,
+                          cfg=cfg)
+    gen = M.shard_generator(torch.Generator(device).manual_seed(seed),
+                            games)
+    recs, done = [], 0
+    for kind in cycle:
+        carry, rec = fns[kind](carry, generator=gen)
+        done = int(M.all_reduce_sum(carry.games_played))
+        recs.append({f: getattr(rec, f).cpu() for f in
+                     ("action", "player", "done", "win_state")})
+    return recs, done
+
+
+def nccl_phase(device, sizes=MULTI) -> dict:
+    """Phase 31: ``init_distributed`` under torchrun's variables at
+    WORLD_SIZE=1 (NCCL on the card, Gloo on the CPU), fresh-tree moves and
+    train steps through the mesh code, then the group is left. The train
+    steps (float32, deterministic cuDNN) must equal the same steps without
+    a group within TRAIN_RTOL / TRAIN_ATOL."""
+    env = get_env("connect4")
+    cuda = torch.device(device).type == "cuda"
+    check(not M.is_distributed(), "a process group exists before phase 31")
+    saved = {k: os.environ.get(k) for k in
+             ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT")}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    out = {}
+    try:
+        check(M.init_distributed("cuda" if cuda else "cpu"),
+              "init_distributed formed no group under WORLD_SIZE=1")
+        backend = dist.get_backend()
+        check(backend == ("nccl" if cuda else "gloo"),
+              f"init_distributed chose {backend}")
+        check(M.world_size() == 1 and M.usable_devices(
+            -1, sizes["games"], sizes["nccl_batch"]) == 1,
+            "the world of one rank")
+        args = get_args(seed=SEED, numMCTSSims=sizes["sims_full"],
+                        numFastSims=sizes["sims_fast"], **sizes["model"])
+        cfg = SelfPlayConfig.from_args(args, env.NUM_PLAYERS, env.HAS_DRAW)
+        net = NNetWrapper(env, args, device=device)
+        reset_counts()
+        _, games_done = mesh_moves(env, net.model, cfg, sizes["games"],
+                                   sizes["cycle"], device, SEED + 5)
+        sync(device)
+        launches = read_counts()
+        if cuda:
+            check(launches["descend"] > 0 and launches["backup"] > 0,
+                  f"phase 31: the moves launched {launches}")
+
+        f32 = get_args(seed=SEED, **dict(sizes["model"],
+                                         compute_dtype="float32"))
+        rows = _train_rows(env, sizes["nccl_steps"] * sizes["nccl_batch"],
+                           SEED + 11, device)
+        n = sizes["nccl_batch"]
+        batches = [tuple(x[k * n:(k + 1) * n] for x in rows)
+                   for k in range(sizes["nccl_steps"])]
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            nets = {}
+            for mesh in (False, True):
+                nets[mesh] = NNetWrapper(env, f32, device=device)
+                if mesh:
+                    nets[mesh].attach_mesh()
+                    check(nets[mesh].mesh, "attach_mesh under a group")
+                nets[mesh].train(batches, len(batches))
+            sync(device)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        err = 0.0
+        want = nets[False].model.state_dict()
+        for k, x in nets[True].model.state_dict().items():
+            d = (x - want[k]).abs()
+            check(not bool((d > TRAIN_ATOL + TRAIN_RTOL * want[k].abs())
+                           .any()),
+                  f"phase 31: {k} after the mesh steps != without a group "
+                  f"(max error {d.max().item():.3g})")
+            err = max(err, d.max().item())
+        mesh_net = nets[True]
+        nccl_kernels = {}
+        if cuda:
+            with torch.profiler.profile(activities=PROFILED) as prof:
+                mesh_net.train(batches[:1], 1)
+                sync(device)
+            nccl_kernels = {e.key: e.count for e in _device_kernels(prof)
+                            if "nccl" in e.key.lower()}
+        params = sum(p.numel() for p in mesh_net.model.parameters())
+        out = dict(backend=backend, games_done=games_done,
+                   launches=launches, max_err=err, params=params,
+                   nccl_kernels=nccl_kernels,
+                   allreduce_ms=wall_ms(lambda: M.all_reduce_mean_(
+                       mesh_net.model), ALLREDUCE_REPS, device))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
+class _Coins:
+    """A numpy stream that records each ``random()`` draw (the Coach's
+    fast/full coins) in ``coins``."""
+
+    def __init__(self, rng, coins):
+        self.rng, self.coins = rng, coins
+
+    def random(self, *a, **k):
+        x = self.rng.random(*a, **k)
+        self.coins.append(float(x))
+        return x
+
+    def __getattr__(self, name):
+        return getattr(self.rng, name)
+
+
+def state_digest(module) -> str:
+    """sha256 of a module's parameters and statistics, bit for bit."""
+    h = hashlib.sha256()
+    for k, v in sorted(module.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_coach(device, root: str, sizes) -> dict:
+    """This rank's part of the 2-rank Coach: ``cli.train.main`` twice in
+    the group the caller made, with the Coach recording its coins and
+    checkpoint writes; the kernels' launches over both calls."""
+    import alphazero_general_tpu_torch.train as train_pkg
+    from alphazero_general_tpu_torch.cli import train as cli_train
+
+    coins, saves, coaches = [], [], []
+
+    class Recording(train_pkg.Coach):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self._np_rng = _Coins(self._np_rng, coins)
+            coaches.append(self)
+
+    def save(self, folder, filename):
+        saves.append(filename)
+        return orig_save(self, folder, filename)
+
+    orig_save = NNetWrapper.save_checkpoint
+    dirs = dict(run_name="smoke", checkpoint=f"{root}/checkpoint",
+                data=f"{root}/data", log_dir=f"{root}/runs")
+    reset_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    with _Patched(train_pkg, "Coach", Recording), \
+            _Patched(NNetWrapper, "save_checkpoint", save):
+        for cut in (sizes["coach"], sizes["resume"]):
+            argv = ["connect4", "--device", torch.device(device).type]
+            for k, v in {**cut, **dirs}.items():
+                argv += ["--set", f"{k}={v!r}"]
+            check(cli_train.main(argv) == 0, f"cli.train.main {argv}")
+    sync(device)
+    last = coaches[-1]
+    return dict(wall=time.perf_counter() - t0, launches=read_counts(),
+                coins=coins, saves=saves, ranks=last.ranks,
+                digest=state_digest(last.train_net.model),
+                sp_digest=state_digest(last.self_play_net.model),
+                self_play_iter=last.self_play_iter,
+                gating_counter=last.gating_counter)
+
+
+def _in_rank_order(fn):
+    """``fn()`` in each rank in turn (the others wait), so that timings
+    are not shared with another process on the card; returns this rank's
+    result."""
+    out = None
+    for r in range(M.world_size()):
+        if M.rank() == r:
+            out = fn()
+        M.barrier()
+    return out
+
+
+def rank_child(rank: int, world: int, work: str) -> None:
+    """One rank of phase 32 (``chip_smoke.py --rank R W DIR``): joins the
+    Gloo group of ``DIR/store`` on the card (all ranks share device 0),
+    runs the rank's tasks on the sizes in ``DIR/sizes.pt`` and writes its
+    results to ``DIR/rank<R>.pt``."""
+    from alphazero_general_tpu_torch.ops import build as OBuild
+
+    sizes = torch.load(os.path.join(work, "sizes.pt"), weights_only=False)
+    device = sizes["device"]
+    # The ranks share the host's cores as they share the caller's.
+    torch.set_num_threads(sizes["threads"])
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                            rank=rank, world_size=world)
+    out = dict(rank=rank)
+    try:
+        env = get_env("connect4")
+        games = sizes["games"]
+        M.rank_slice(games)  # raises where the games do not split
+        if cuda:
+            # Every rank builds the kernels at once into one fresh folder
+            # (ops/build.py installs with os.replace), then launches them.
+            OBuild.BUILD_DIR = OBuild.Path(work) / "build"
+            t0 = time.perf_counter()
+            res = OBuild.build_library()
+            out["build"] = dict(seconds=time.perf_counter() - t0,
+                                built=res.seconds > 0, lib=res.path.name)
+            M.barrier()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+
+        # Moves over a table evaluation (the same numbers at any batch):
+        # the 1-rank run's rows for this rank's games.
+        args = get_args(seed=SEED, numMCTSSims=sizes["sims_full"],
+                        numFastSims=sizes["sims_fast"], **sizes["model"])
+        cfg = SelfPlayConfig.from_args(args, env.NUM_PLAYERS, env.HAS_DRAW)
+        table = _log_apply(table_eval_fn(env, cfg.spec.value_size))
+        reset_counts()
+        out["table"], _ = mesh_moves(env, table, cfg, games, sizes["cycle"],
+                                     device, SEED + 6)
+        out["table_launches"] = read_counts()
+
+        # A float32 train step on this rank's rows of a fixed global batch.
+        f32 = get_args(seed=SEED, **dict(sizes["model"],
+                                         compute_dtype="float32"))
+        rows = _train_rows(env, sizes["train_batch"], SEED + 9, device)
+        tnet = NNetWrapper(env, f32, device=device)
+        tnet.attach_mesh()
+        part = M.rank_slice(sizes["train_batch"])
+        tnet.train([tuple(x[part] for x in rows)], 1)
+        out["train_state"] = {k: v.cpu() for k, v in
+                              tnet.model.state_dict().items()}
+        out["train_digest"] = state_digest(tnet.model)
+        out["allreduce_ms"] = wall_ms(lambda: M.all_reduce_mean_(
+            tnet.model), ALLREDUCE_REPS, device)
+        out["params"] = sum(p.numel() for p in tnet.model.parameters())
+        del tnet
+
+        # Self-play sims/s, the ranks at once over the random network.
+        net = NNetWrapper(env, args, device=device)
+        local = games // world
+        selfplay_phase(env, net.model, cfg, local, sizes["cycle"][:1],
+                       device)  # warm-up
+        M.barrier()
+        sp = selfplay_phase(env, net.model, cfg, local, sizes["cycle"],
+                            device)
+        out["selfplay"] = dict(wall=sum(dt for _, _, dt in sp["moves"]),
+                               sims=sum(s for _, s, _ in sp["moves"]),
+                               games=local)
+        M.barrier()
+
+        # Each rank's kernels against their plain versions: the game-minor
+        # ones mid-search at its self-play shape, the batch-major ones on
+        # the trees of its reuse moves; timed in turns.
+        def kernels():
+            errs, timing = kernel_phase(
+                env, net.make_eval_fn(), cfg.spec, local,
+                sizes["sims_full"], sizes["snapshots"], device,
+                reps=sizes["reps"])
+            rcfg = cfg._replace(reuse_tree=True)
+            rp = selfplay_phase(env, net.model, rcfg, local,
+                                sizes["reuse_cycle"], device)
+            rerrs, rtiming = rows_kernel_phase(
+                env, net.make_eval_fn(), cfg.spec, rp["carry"].trees,
+                sizes["reuse_sims"], sizes["reuse_snapshots"], device,
+                reps=sizes["reps"])
+            return dict(errs={**errs, **rerrs},
+                        timing={**timing, **rtiming},
+                        reuse_launches=rp["launches"])
+
+        out["kernels"] = _in_rank_order(kernels)
+        del net
+
+        out["coach"] = rank_coach(device, work, sizes)
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                             if cuda else 0)
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        M.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(work: str, sizes: dict) -> list:
+    """Phase 32's ranks, each ``chip_smoke.py --rank R W DIR`` in its own
+    process with its output in ``DIR/rank<R>.log``; fails (killing every
+    rank) as soon as one exits non-zero, or at ``sizes["deadline"]``."""
+    world = sizes["world"]
+    torch.save(sizes, os.path.join(work, "sizes.pt"))
+    env = dict(os.environ, WORLD_SIZE=str(world), LOCAL_RANK="0",
+               PYTHONUNBUFFERED="1")
+    logs, procs = [], []
+    for r in range(world):
+        logs.append(open(os.path.join(work, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             str(world), work], stdout=logs[-1], stderr=subprocess.STDOUT,
+            env=dict(env, RANK=str(r))))
+    deadline = time.perf_counter() + sizes["deadline"]
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+                break
+            if time.perf_counter() > deadline:
+                failed = f"the ranks passed {sizes['deadline']} s"
+                break
+            time.sleep(0.5)
+        if failed is None:
+            bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    if failed is not None:
+        tails = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                tails.append(f"--- rank {r}:\n" + f.read()[-3000:])
+        raise SmokeFailure(f"phase 32: {failed}\n" + "\n".join(tails))
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def two_rank_phase(device, work: str, sizes=MULTI) -> dict:
+    """Phase 32: the ranks of ``run_ranks`` against this process as one
+    rank on the same inputs, and the 2-rank Coach's files and metrics;
+    self-play sims/s of one rank before and after the ranks' run."""
+    env = get_env("connect4")
+    cuda = torch.device(device).type == "cuda"
+    world, games = sizes["world"], sizes["games"]
+    args = get_args(seed=SEED, numMCTSSims=sizes["sims_full"],
+                    numFastSims=sizes["sims_fast"], **sizes["model"])
+    cfg = SelfPlayConfig.from_args(args, env.NUM_PLAYERS, env.HAS_DRAW)
+    net = NNetWrapper(env, args, device=device)
+    one_rate = [selfplay_phase(env, net.model, cfg, games, sizes["cycle"],
+                               device)["sims_per_s"]]
+    table = _log_apply(table_eval_fn(env, cfg.spec.value_size))
+    want_table, _ = mesh_moves(env, table, cfg, games, sizes["cycle"],
+                               device, SEED + 6)
+    f32 = get_args(seed=SEED, **dict(sizes["model"],
+                                     compute_dtype="float32"))
+    one = NNetWrapper(env, f32, device=device)
+    one.train([_train_rows(env, sizes["train_batch"], SEED + 9, device)], 1)
+    want_state = {k: v.cpu() for k, v in one.model.state_dict().items()}
+    del one
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(work, dict(
+        sizes, device=device,
+        threads=max(1, torch.get_num_threads() // world)))
+    ranks_wall = time.perf_counter() - t0
+    one_rate.append(selfplay_phase(env, net.model, cfg, games,
+                                   sizes["cycle"], device)["sims_per_s"])
+
+    local = games // world
+    # 7. the table moves: each rank's records are the 1-rank run's rows of
+    # its games.
+    for r, out in enumerate(ranks):
+        rows = slice(r * local, (r + 1) * local)
+        for k, (got, want) in enumerate(zip(out["table"], want_table)):
+            for f in want:
+                check(torch.equal(got[f], want[f][rows]),
+                      f"phase 32: rank {r}'s move {k} {f} != the 1-rank "
+                      "run's")
+        if cuda:
+            n = out["table_launches"]
+            check(n["descend"] > 0 and n["backup"] > 0,
+                  f"phase 32: rank {r}'s moves launched {n}")
+    # 6. the train step: both ranks bit-identical, the 1-rank step within
+    # the train tolerance.
+    check(ranks[0]["train_digest"] == ranks[1]["train_digest"],
+          "phase 32: the ranks' weights differ after the train step")
+    err = 0.0
+    for k, x in ranks[0]["train_state"].items():
+        d = (x - want_state[k]).abs()
+        check(not bool((d > TRAIN_ATOL + TRAIN_RTOL * want_state[k].abs())
+                       .any()),
+              f"phase 32: the 2-rank step's {k} != the 1-rank step's (max "
+              f"error {d.max().item():.3g})")
+        err = max(err, d.max().item())
+    # 5. each rank's kernels: bit-equal to their plain versions, launched
+    # by its Coach.
+    for r, out in enumerate(ranks):
+        for k, e in out["kernels"]["errs"].items():
+            check(e == 0.0, f"phase 32: rank {r}'s {k} error {e}")
+        n = out["coach"]["launches"]
+        if cuda:
+            check(n["descend"] > 0 and n["backup"] > 0,
+                  f"phase 32: rank {r}'s Coach launched {n}")
+            rl = out["kernels"]["reuse_launches"]
+            check(rl["descend_rows"] > 0 and rl["backup_rows"] > 0,
+                  f"phase 32: rank {r}'s reuse moves launched {rl}")
+    # 1, 4. weights, gating and coins the same on both ranks.
+    co = [out["coach"] for out in ranks]
+    for key in ("digest", "sp_digest", "self_play_iter", "gating_counter",
+                "coins", "ranks"):
+        check(co[0][key] == co[1][key],
+              f"phase 32: the ranks' Coaches differ in {key}")
+    check(co[0]["ranks"] == world and len(co[0]["coins"]) > 0
+          and co[0]["self_play_iter"] == 1,
+          f"phase 32: ranks {co[0]['ranks']}, {len(co[0]['coins'])} coins, "
+          f"self-play model {co[0]['self_play_iter']}")
+    # 2. rank 0 alone wrote the checkpoints.
+    check(co[1]["saves"] == [] and co[0]["saves"] == [
+        get_iter_file(i) for i in range(3)],
+        f"phase 32: checkpoint writes {co[0]['saves']} / {co[1]['saves']}")
+    ckpt = os.path.join(work, "checkpoint", "smoke")
+    for i in range(3):
+        check(os.path.isfile(os.path.join(ckpt, get_iter_file(i) + ".ckpt")),
+              f"phase 32: no checkpoint {i}")
+    # 3. two sample files an iteration whose rows add up to the samples
+    # the finalizers counted (rank 0's metric: the sum over the ranks).
+    m = _read_metrics(os.path.join(work, "runs", "smoke", "metrics.jsonl"))
+    files = sorted(os.listdir(os.path.join(work, "data", "smoke")))
+    check(files == [f"{get_iter_file(i)}-p{r}.npz" for i in (1, 2)
+                    for r in range(world)],
+          f"phase 32: sample files {files}")
+    samples = {}
+    for i in (1, 2):
+        n = []
+        for r in range(world):
+            store = ReplayStore(os.path.join(work, "data"), "smoke")
+            store._suffix = f"-p{r}"
+            n.append(len(store.load(i)[0]))
+        samples[i] = n
+        check(sum(n) == m["self_play/samples"][i] and min(n) > 0,
+              f"phase 32: iteration {i} files hold {n} samples, the "
+              f"finalizers counted {m['self_play/samples'][i]}")
+    check(m["self_play/int8"][2] == 1.0,
+          "phase 32: iteration 2 did not play the int8 tower")
+    for kind in ("baseline", "past"):
+        a = {t: m[f"arena_{kind}/{t}"][1] for t in
+             ("games", "wins_new", "wins_other", "draws")}
+        check(a["wins_new"] + a["wins_other"] + a["draws"] == a["games"]
+              == sizes["coach"]["arenaCompare"],
+              f"phase 32: the {kind} arena's results {a}")
+    sp = [out["selfplay"] for out in ranks]
+    return dict(
+        ranks=ranks, wall=ranks_wall, train_max_err=err, samples=samples,
+        sims_per_s_1rank=one_rate,
+        sims_per_s_2rank=games * sp[0]["sims"] / max(s["wall"] for s in sp),
+        times={t[5:]: m[t] for t in m if t.startswith("time/")},
+        arenas={kind: {t: m[f"arena_{kind}/{t}"][1] for t in
+                       ("games", "rounds", "wins_new", "wins_other",
+                        "draws")} for kind in ("baseline", "past")})
+
+
+def multi_device_phases(device, smi: str, sizes=MULTI) -> tuple:
+    """Phases 31-32; returns the ranks' kernel records and the numbers."""
+    t0 = time.perf_counter()
+    nc = nccl_phase(device, sizes)
+    log(f"  NCCL at world size 1: {nc['games_done']} games done over the "
+        f"mesh moves, launches {nc['launches']}; {sizes['nccl_steps']} "
+        f"train steps at batch {sizes['nccl_batch']} with the group within "
+        f"{nc['max_err']:.3g} of the steps without; NCCL kernels in a "
+        f"step's trace: {nc['nccl_kernels'] or 'none'}; a gradient "
+        f"all-reduce ({nc['params']:,} floats) {nc['allreduce_ms']:.3f} ms; "
+        f"card: {smi}")
+    log(f"phase NCCL: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        tr = two_rank_phase(device, work, sizes)
+    records = []
+    for r, out in enumerate(tr["ranks"]):
+        t = out["kernels"]["timing"]
+        errs = out["kernels"]["errs"]
+        for k in ("descend", "backup"):
+            log_timing(k, t[k])
+            records.append(kernel_record(
+                f"{k}@connect4_rank{r}_of_2", k, t[k],
+                out["coach"]["launches"][k], errs[k]))
+        for k in ("descend_rows", "backup_rows"):
+            log_timing(k, t[k])
+            records.append(kernel_record(
+                f"{k}@connect4_reuse_rank{r}_of_2", k, t[k],
+                out["kernels"]["reuse_launches"][k], errs[k]))
+    r0 = tr["ranks"]
+    one = ", ".join(f"{x:,.0f}" for x in tr["sims_per_s_1rank"])
+    ar = ", ".join(f"{o['allreduce_ms']:.2f}" for o in r0)
+    peak = ", ".join(f"{o['peak_bytes'] / 2**30:.2f}" for o in r0)
+    log(f"  two ranks on one card over Gloo: self-play "
+        f"{tr['sims_per_s_2rank']:,.0f} sims/s of {sizes['games']} games, "
+        f"one rank {one} (before, after); a gradient all-reduce {ar} ms; "
+        f"peak memory {peak} GiB; "
+        f"train step within {tr['train_max_err']:.3g} of one rank's; "
+        f"samples {tr['samples']}; the Coach's phases "
+        f"{json.dumps(tr['times'])}; arenas {json.dumps(tr['arenas'])}; "
+        f"the ranks' run {tr['wall']:.1f} s; card: {smi}")
+    log(f"phase two ranks: {time.perf_counter() - t0:.1f} s")
+    numbers = dict(
+        nccl=dict((k, nc[k]) for k in ("backend", "max_err", "allreduce_ms",
+                                       "nccl_kernels", "params")),
+        gloo_allreduce_ms=[o["allreduce_ms"] for o in r0],
+        sims_per_s=dict(two_ranks=tr["sims_per_s_2rank"],
+                        one_rank=tr["sims_per_s_1rank"]),
+        peak_bytes=[o["peak_bytes"] for o in r0],
+        build=[o.get("build") for o in r0],
+        coach_launches=[o["coach"]["launches"] for o in r0],
+        coach_times=tr["times"], coach_wall=[o["coach"]["wall"] for o in r0],
+        ranks_wall=tr["wall"])
+    return records, numbers
+
+
 def main() -> int:
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -3475,14 +4119,16 @@ def main() -> int:
     player_records = player_phases(device, smi)
     search_records, search_layer = search_layer_phases(device, smi,
                                                        c4_by_rows)
+    multi_records, multi_device = multi_device_phases(device, smi)
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
     log(json.dumps({"int8_tower": {"connect4": c4_int8,
                                    "hnefatafl": tafl_int8, "card": smi}}))
     log(json.dumps({"search_layer": dict(search_layer, card=smi)}))
+    log(json.dumps({"multi_device": dict(multi_device, card=smi)}))
     log(smi)
     log(json.dumps({"kernels": records + tafl_records + env_records
-                    + player_records + search_records}))
+                    + player_records + search_records + multi_records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": device_count}}))
     return 0
@@ -3490,6 +4136,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--rank"]:
+            rank_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+            sys.exit(0)
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)

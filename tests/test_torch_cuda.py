@@ -1176,3 +1176,61 @@ def test_cuda_rounds_and_segments_never_wait_for_the_device():
     for tt in trees:
         assert (tt.n[0] == 40).all()
     assert (tree.n[:, 0] == 31).all()
+
+
+@pytest.mark.gpu
+def test_cuda_two_rank_train_step_matches_one_rank(tmp_path):
+    """Two ranks sharing the card in a Gloo group (its collectives on CUDA
+    tensors; tests/torch_rank_worker.py): two float32 train steps of a
+    small ResNet on each rank's half of each global batch of 16, the
+    ranks' weights and statistics bit-identical and within 1e-4 relative
+    plus 1e-5 of the same steps of one process on the card (BatchNorm over
+    the global batch, the mean gradient)."""
+    dev = _cuda()
+    from alphazero_general_tpu_torch.models import NNetWrapper
+    from alphazero_general_tpu_torch.utils import get_args
+    from torch_rank_worker import launch
+
+    env = get_env("connect4")
+    knobs = dict(num_channels=16, depth=2, value_head_channels=4,
+                 policy_head_channels=4, value_dense_layers=[32],
+                 policy_dense_layers=[32], compute_dtype="float32", seed=3)
+    one = NNetWrapper(env, get_args(**knobs), device=dev)
+    state = {k: v.cpu().clone() for k, v in one.model.state_dict().items()}
+    g = torch.Generator().manual_seed(4)
+    batches = []
+    for _ in range(2):
+        s = env.init(16, "cpu")
+        for _ in range(8):
+            valid = env.valid_moves(s).to(torch.float32)
+            s = env.step(s, torch.multinomial(valid, 1, generator=g)[:, 0])
+        pi = torch.rand((16, 7), generator=g)
+        value = torch.nn.functional.one_hot(
+            torch.randint(0, 3, (16,), generator=g), 3).to(torch.float32)
+        batches.append((env.observation(s).to(torch.float32),
+                        pi / pi.sum(-1, keepdim=True), value))
+    outs = launch("train", str(tmp_path), dict(
+        args=knobs, state=state, batches=batches, device="cuda"))
+    one.train(batches, 2)
+    assert outs[0]["digest"] == outs[1]["digest"]
+    for k, w in one.model.state_dict().items():
+        got = outs[0]["state"][k]
+        assert torch.allclose(got, w.cpu(), rtol=1e-4, atol=1e-5), k
+        assert not torch.equal(got, state[k]), k  # trained
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_in_each_rank(tmp_path):
+    """Both game-minor kernels bit for bit against their plain versions
+    in each of two ranks that share the card, each at a snapshot of a
+    search of its 128 of 256 games (its draws the global batch's, cut
+    through a GameShard, whose root noise gathers every rank's rows)."""
+    _cuda()
+    from torch_rank_worker import launch
+
+    outs = launch("kernels", str(tmp_path), dict(games=256, sims=40,
+                                                  snapshot=20))
+    for r, out in enumerate(outs):
+        assert all(out["same"]), (r, out["same"])
+        # descend: the compared launch and the snapshot's own walk.
+        assert out["launches"] == (2, 1) and out["root_n"] == 20

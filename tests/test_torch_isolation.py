@@ -14,6 +14,10 @@ import tempfile
 import pytest
 import torch
 
+# Small tensors: one intra-op thread (several test processes, and the
+# ranks that the multi-device rehearsal starts, share the host's cores).
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "alphazero_general_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack",
@@ -480,11 +484,13 @@ def test_chip_smoke_main_runs_every_phase_in_order(monkeypatch, capsys):
     monkeypatch.setattr(C, "device_phase", lambda: ("card", 1, "card, 1 W"))
     monkeypatch.setattr(C, "build_phase", lambda: None)
     monkeypatch.setattr(C, "launch_floor_ms", lambda device: 0.001)
-    groups = ("connect4", "tafl", "env", "player", "search_layer")
+    groups = ("connect4", "tafl", "env", "player", "search_layer",
+              "multi_device")
     for group in groups:
         record = [{"name": group}]
         result = {"connect4": (record, {}, {}), "tafl": (record, {}),
-                  "search_layer": (record, {})}.get(group, record)
+                  "search_layer": (record, {}),
+                  "multi_device": (record, {})}.get(group, record)
         monkeypatch.setattr(C, f"{group}_phases",
                             lambda d, smi, *rest, g=group, r=result:
                             ran.append(g) or r)
@@ -493,6 +499,80 @@ def test_chip_smoke_main_runs_every_phase_in_order(monkeypatch, capsys):
     assert '"ok": true' in lines[-1]
     assert [r["name"] for r in json.loads(lines[-2])["kernels"]] == list(
         groups)
+
+
+#: The multi-device phases at a tiny size: 8 games (4 a rank), an
+#: 8-channel one-block net, 2 train steps through the group of one.
+TINY_NET = dict(num_channels=8, depth=1, value_head_channels=2,
+                policy_head_channels=2, value_dense_layers=[8],
+                policy_dense_layers=[8])
+
+
+def _tiny_multi(C):
+    small = dict(process_batch_size=8, train_batch_size=8,
+                 deviceWindowRows=16384, **TINY_NET)
+    return dict(
+        C.MULTI, games=8, sims_full=12, sims_fast=3,
+        model=dict(TINY_NET, compute_dtype="bfloat16"), nccl_steps=2,
+        nccl_batch=8, train_batch=8, snapshots=(4,),
+        reuse_cycle=("full", "full"), reuse_sims=3, reuse_snapshots=(2,),
+        reps=1, deadline=300,
+        coach=dict(C.MULTI_COACH_CUTS, gamesPerIteration=8, arenaCompare=4,
+                   arenaCompareBaseline=4, numMCTSSims=4, **small),
+        resume=dict(C.MULTI_RESUME_CUTS, gamesPerIteration=8,
+                    numMCTSSims=6, numFastSims=3, **small))
+
+
+def test_chip_smoke_multi_device_phases_rehearse_on_cpu(capsys):
+    """Phases 31-32 at a tiny size on the CPU: the group of one rank
+    (Gloo here, NCCL on the card) from torchrun's variables, then two
+    ranks of the script over Gloo, with every check of the phase (the
+    table moves against this process's, the train step, the Coach's files,
+    weights, coins and gating); their kernel records and log lines."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke as C
+    finally:
+        sys.path.remove(str(REPO))
+    records, numbers = C.multi_device_phases("cpu", "cpu", _tiny_multi(C))
+    assert [r["name"] for r in records] == [
+        f"{k}@connect4_{tag}rank{r}_of_2" for r in (0, 1)
+        for k, tag in (("descend", ""), ("backup", ""),
+                       ("descend_rows", "reuse_"), ("backup_rows", "reuse_"))]
+    for r in records:
+        assert r["max_abs_err"] == 0.0 and r["launches"] == 0
+        assert {"ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"} <= set(r)
+    assert numbers["nccl"]["backend"] == "gloo"
+    assert numbers["nccl"]["max_err"] == 0.0
+    assert numbers["sims_per_s"]["two_ranks"] > 0
+    assert {"self_play", "train", "arena_baseline",
+            "arena_past"} <= set(numbers["coach_times"])
+    out = capsys.readouterr().out
+    assert "NCCL at world size 1" in out and "two ranks on one card" in out
+    assert not C.M.is_distributed()
+
+
+def test_chip_smoke_fails_when_a_rank_fails(tmp_path):
+    """A rank that exits non-zero fails phase 32 at once, with the ranks'
+    output, and the other rank is stopped: 9 games do not split over two
+    ranks, which each rank finds before its first collective."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke as C
+    finally:
+        sys.path.remove(str(REPO))
+    sizes = dict(_tiny_multi(C), games=9, device="cpu", threads=1)
+    with pytest.raises(C.SmokeFailure, match="(?s)exited 1.*does not split"):
+        C.run_ranks(str(tmp_path), sizes)
+
+
+def test_parallel_modules_stand_alone():
+    """The parallel layer is among the modules whose imports are held free
+    of JAX above."""
+    mods = set(_port_modules())
+    assert {"alphazero_general_tpu_torch.parallel",
+            "alphazero_general_tpu_torch.parallel.mesh"} <= mods
 
 
 class _Dir:
