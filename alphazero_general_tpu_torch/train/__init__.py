@@ -1,1 +1,1 @@
-from alphazero_general_tpu_torch.train.coach import Coach  # noqa: F401
+from alphazero_general_tpu_torch.train.coach import Coach, TrainState  # noqa: F401

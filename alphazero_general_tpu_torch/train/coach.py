@@ -49,14 +49,28 @@ indices) draws from a stream of its own, ``np.random.default_rng([seed,
 rank])``, which keeps the shared stream in step. Rank 0 writes the
 checkpoints (the others wait at a barrier), the run state and the metrics.
 There is no device window under W > 1 (JAX coach.py:520-526).
+
+Status and control (JAX coach.py:57-70, 131-134), for the GUI's train
+panel: ``state`` is the phase the Coach is in (``TrainState``), set where
+the JAX Coach sets it. ``stop_train`` ends ``learn`` after the phase it is
+in, and self-play before its next move (the moves enqueued are read and
+the games that have ended keep their samples); while ``pause_train`` is
+set, self-play makes no move. Under W ranks rank 0 decides for all: its
+stop rides in the finished-game count that every rank reads a move
+(``_progress``, no collective more), and between phases in one max
+all-reduce; its pause holds it before its next move, and the other ranks
+wait in that move's all-reduce. Every rank leaves on the same move and
+after the same phase.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from collections import deque
+from enum import Enum
 from glob import glob
 from math import ceil
 
@@ -85,9 +99,25 @@ from alphazero_general_tpu_torch.utils.trace import PhaseTracer
 PIPE = 8
 
 
+class TrainState(Enum):
+    """Status surface polled by UIs (reference: Coach.py:129-139)."""
+
+    STANDBY = 0
+    INIT = 1
+    INIT_AGENTS = 2
+    SELF_PLAY = 3
+    SAVE_SAMPLES = 4
+    PROCESS_RESULTS = 5
+    KILL_AGENTS = 6
+    TRAIN = 7
+    COMPARE_BASELINE = 8
+    COMPARE_PAST = 9
+
+
 class Coach:
     def __init__(self, env, nnet: NNetWrapper, args: Args, draws=None):
         check_ported(args)
+        self.state = TrainState.INIT
         self.env = env
         self.args = args
         self.args._num_players = env.NUM_PLAYERS + int(env.HAS_DRAW)
@@ -141,6 +171,10 @@ class Coach:
         self.loss_v = 0.0
         self.sample_time = 0.0
         self.games_played_iter = 0
+        self.stop_train = threading.Event()
+        self.pause_train = threading.Event()
+        self.train_net.stop_train = self.stop_train
+        self.train_net.pause_train = self.pause_train
 
         self.store = ReplayStore(args.data, args.run_name)
         self.writer = make_writer(
@@ -273,26 +307,42 @@ class Coach:
                     self.warmup = self.self_play_iter == 0
                 with self.tracer.phase("self_play", self.model_iter):
                     self.generate_self_play_data(self.model_iter)
+                if self._stop_requested():
+                    break
 
             with self.tracer.phase("train", self.model_iter):
                 self.train(self.model_iter)
+            if self._stop_requested():
+                break
 
             if self.args.compareWithBaseline and \
                     int(self.args.arenaCompareBaseline) > 0 and \
                     (self.model_iter - 1) % self.args.baselineCompareFreq == 0:
                 with self.tracer.phase("arena_baseline", self.model_iter):
                     self.compare_to_baseline(self.model_iter)
+                if self._stop_requested():
+                    break
 
             if self.args.compareWithPast and \
                     int(self.args.arenaCompare) > 0 and \
                     (self.model_iter - 1) % self.args.pastCompareFreq == 0:
                 with self.tracer.phase("arena_past", self.model_iter):
                     self.compare_to_past(self.model_iter)
+                if self._stop_requested():
+                    break
 
             self.writer.add_scalar("win_rate/self_play_model",
                                    self.self_play_iter, self.model_iter)
             self.model_iter += 1
             self._save_run_state()
+        self.state = TrainState.STANDBY
+
+    def _stop_requested(self) -> bool:
+        """Whether to leave ``learn`` after a phase: rank 0's
+        ``stop_train``, the same on every rank (a max all-reduce under
+        W > 1)."""
+        stop = int(M.rank() == 0 and self.stop_train.is_set())
+        return bool(M.all_reduce_max(stop)) if self.ranks > 1 else bool(stop)
 
     # ------------------------------------------------------------- self-play
     def generate_self_play_data(self, iteration: int) -> None:
@@ -303,7 +353,9 @@ class Coach:
         finalizer, and the samples of games still running at the end are
         dropped. Under W ranks each plays its ``batch / W`` games, and the
         count read is the sum over the ranks, so all leave on the same
-        move."""
+        move. ``stop_train`` and ``pause_train`` are honoured before each
+        move (rank 0's, under W ranks; see the module's docstring)."""
+        self.state = TrainState.SELF_PLAY
         batch = int(self.args.process_batch_size)
         target = int(self.args.gamesPerIteration)
         # Self-play uses the gated model (Coach.py:337-338).
@@ -354,7 +406,13 @@ class Coach:
                           obs=None if o is None else o.cpu().numpy(), pi=p)
 
         bar = Bar(f"Self-play iter {iteration}", max=target)
-        while games_done < target:
+        stopped = False  # rank 0's stop, as every rank read it
+        while games_done < target and not stopped:
+            if self.ranks == 1 and self.stop_train.is_set():
+                break
+            if M.rank() == 0:
+                while self.pause_train.is_set():
+                    time.sleep(0.1)
             if self.warmup:
                 kind = "warmup"
             else:
@@ -376,7 +434,7 @@ class Coach:
                         rec.pi, rec.pi_idx))
             pending.append(carry.games_played)
             while len(pending) > PIPE:
-                games_done = int(self._global_sum(pending.popleft()))
+                games_done, stopped = self._progress(pending.popleft())
                 self.games_played_iter = games_done
                 drain_round()
                 bar.suffix = f"moves {moves}"
@@ -394,6 +452,7 @@ class Coach:
         elapsed = time.time() - start
         self.sample_time = elapsed / max(games_done, 1)
 
+        self.state = TrainState.SAVE_SAMPLES
         while raw:
             drain_round()
         fin.finish()
@@ -404,16 +463,22 @@ class Coach:
               + (f"; {n_local} in rank {M.rank()}'s file"
                  if self.ranks > 1 else ""))
 
-        wins, draws, avg_len = self._game_stats(np.stack(stats_win),
-                                                np.stack(stats_done))
-        total = max(int(wins.sum()) + draws, 1)
-        for i, w in enumerate(wins):
-            credit = 0.5 * draws if self.args.use_draws_for_winrate else 0.0
-            self.writer.add_scalar(f"win_rate/player{i}",
-                                   (w + credit) / total, iteration)
-        self.writer.add_scalar("win_rate/draws", draws / total, iteration)
-        self.writer.add_scalar("win_rate/avg_game_length", avg_len,
-                               iteration)
+        self.state = TrainState.PROCESS_RESULTS
+        # A stop before the first move leaves no round to count (the JAX
+        # Coach raises there).
+        if moves:
+            wins, draws, avg_len = self._game_stats(np.stack(stats_win),
+                                                    np.stack(stats_done))
+            total = max(int(wins.sum()) + draws, 1)
+            for i, w in enumerate(wins):
+                credit = 0.5 * draws if self.args.use_draws_for_winrate \
+                    else 0.0
+                self.writer.add_scalar(f"win_rate/player{i}",
+                                       (w + credit) / total, iteration)
+            self.writer.add_scalar("win_rate/draws", draws / total,
+                                   iteration)
+            self.writer.add_scalar("win_rate/avg_game_length", avg_len,
+                                   iteration)
         self.writer.add_scalar("loss/sample_time", self.sample_time,
                                iteration)
         # What the iteration ran and kept: the finalizer's sample count,
@@ -426,10 +491,25 @@ class Coach:
                                iteration)
         self.writer.add_scalar("self_play/int8",
                                float(model is net.quant_model), iteration)
+        self.state = TrainState.STANDBY
 
     def _global_sum(self, x):
         """``x`` summed over the ranks (itself on one rank)."""
         return M.all_reduce_sum(x) if self.ranks > 1 else x
+
+    def _progress(self, games_played):
+        """(games finished over the ranks, whether rank 0 asks to stop) at
+        a move the host reads: under W ranks one all-reduce of [games,
+        stop], the count's own; on one rank the count alone (the loop
+        tests ``stop_train`` before every move, as the JAX Coach does)."""
+        if self.ranks == 1:
+            return int(games_played), False
+        stop = int(M.rank() == 0 and self.stop_train.is_set())
+        both = torch.cat([games_played.reshape(1), torch.full(
+            (1,), stop, dtype=games_played.dtype,
+            device=games_played.device)])
+        total = M.all_reduce_sum(both).tolist()
+        return int(total[0]), bool(total[1])
 
     def _game_stats(self, win, done):
         """``game_stats_arrays`` of the global batch: wins and draws summed
@@ -447,8 +527,10 @@ class Coach:
     # -------------------------------------------------------------- training
     def train(self, iteration: int) -> None:
         """Train over the growing history window (Coach.py:437-525)."""
+        self.state = TrainState.TRAIN
         if self.args.train_on_past_data and iteration == self.args.startIter:
             self._train_on_past_data(iteration)
+            self.state = TrainState.STANDBY
             return
         window = history_window(
             iteration, int(self.args.minTrainHistoryWindow),
@@ -484,6 +566,7 @@ class Coach:
             phys = self._dev_window.indices_for(first, iteration)
             if not len(phys):
                 print("Warning: no training data found; skipping train step")
+                self.state = TrainState.STANDBY
                 return
         else:
             data = self.store.load_window(
@@ -495,6 +578,7 @@ class Coach:
             # Every rank skips, or none (each reads its own files).
             if bool(M.all_reduce_max(int(data is None))):
                 print("Warning: no training data found; skipping train step")
+                self.state = TrainState.STANDBY
                 return
         self.train_net.set_device_symmetries(sym_env if device_sym else None)
         self.train_net.set_device_window(use_window)
@@ -582,6 +666,7 @@ class Coach:
         self.writer.add_scalar("loss/total", self.loss_pi + self.loss_v,
                                iteration)
         self._save_model(self.train_net, iteration)
+        self.state = TrainState.STANDBY
 
     def _train_on_past_data(self, iteration: int) -> None:
         """One-shot chunked pre-training from a previous run's sample files
@@ -664,6 +749,7 @@ class Coach:
     def compare_to_past(self, model_iter: int) -> None:
         """Arena against the gated self-play model, and the gating decision
         (Coach.py:527-572)."""
+        self.state = TrainState.COMPARE_PAST
         self._load_model(self.self_play_net, self.self_play_iter)
         print(f"PITTING AGAINST ITERATION {self.self_play_iter}")
         # The int8 tower on both seats where it is available.
@@ -702,10 +788,12 @@ class Coach:
             self.gating_counter = 0
         if self.args.model_gating:
             print(f"Using model version {self.self_play_iter} for self play.")
+        self.state = TrainState.STANDBY
 
     def compare_to_baseline(self, iteration: int) -> None:
         """Arena against the model-free RawMCTS baseline
         (Coach.py:574-590)."""
+        self.state = TrainState.COMPARE_BASELINE
         print("PITTING AGAINST BASELINE: RawMCTS")
         quant = self._try_quant(self.train_net, iteration) is not None
         result = self._arena("baseline", quant)
@@ -715,3 +803,4 @@ class Coach:
               f"DRAWS : {float(result.draws):.0f}")
         print(f"NEW MODEL WINRATE : {round(winrate, 3)}")
         self.writer.add_scalar("win_rate/baseline", winrate, iteration)
+        self.state = TrainState.STANDBY

@@ -228,10 +228,28 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    up to the samples counted, the same gating decision and fast/full
    coins on both ranks, and each rank's kernels launched by its Coach.
 
+33. GUI: the port's GUI server (``gui.server``, its handler on the card)
+   in this process, driven over HTTP as the page drives it: the page,
+   ``/api/envs`` and ``/api/args``; a connect4 game against ``mcts:``
+   over a random preset-width checkpoint (128 x 8) at the preset's 200
+   simulations (every agent reply legal, the board equal to a replay of
+   the same actions on the CPU, the evaluator's analysis published, undo
+   back to the human's move), chess (A = 4672, the flipped board) and
+   stratego's placement against rawmcts, tictactoe hot-seat and
+   networked; the launch counters equal to the agents' and the
+   evaluator's simulations through both batch-major kernels, with no
+   plain version run. Then the train panel: a connect4 session cut as
+   ``GUI_TRAIN_CUTS`` says, paused in self-play (no game finished and no
+   kernel launched for ``GUI_PAUSE_S``), resumed and run through
+   SELF_PLAY, TRAIN and COMPARE_BASELINE to iteration-0001.ckpt with both
+   game-minor kernels; a second session stopped in self-play, in STANDBY
+   within ``GUI_STOP_S``. Last, both batch-major kernels bit for bit at
+   the GUI evaluator's tree (B = 1, N = 403), timed as in phase 22.
+
 Before the card's line come the int8 phases' numbers
 ``{"int8_tower": {...}}``, the search layer's ``{"search_layer":
-{...}}`` and the multi-device phases' ``{"multi_device": {...}}``; the
-last two lines are the kernels line
+{...}}``, the multi-device phases' ``{"multi_device": {...}}`` and the
+GUI's ``{"gui": {...}}``; the last two lines are the kernels line
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``. The script
 imports nothing of JAX.
 """
@@ -247,7 +265,11 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -4100,6 +4122,411 @@ def multi_device_phases(device, smi: str, sizes=MULTI) -> tuple:
     return records, numbers
 
 
+# --------------------------------------------------------------------------
+# The GUI (33)
+# --------------------------------------------------------------------------
+
+#: The GUI's connect4 game: the opponent's simulations a move (the
+#: preset's), and the human's columns.
+GUI_SIMS = 200
+GUI_HUMAN_COLUMNS = (3, 3, 2)
+#: Simulations of the GUI evaluator's search (its max_sims: N = 403 rows)
+#: at whose snapshots both batch-major kernels are held; the last is timed.
+GUI_EVAL_SIMS = 400
+GUI_EVAL_SNAPSHOTS = (50, 399)
+#: The train panel's session: the connect4 preset (its network, the int8
+#: default) cut in depth only: one iteration (a warmup one), 768 games
+#: 256 at a time, arenas of 32 games at 25 simulations.
+GUI_TRAIN_CUTS = dict(numIters=1, process_batch_size=256,
+                      gamesPerIteration=768, arenaCompareBaseline=32,
+                      arenaCompare=32, numMCTSSims=25)
+#: Seconds a paused session is watched; seconds a stopped one may take to
+#: leave ``learn``; seconds the whole session may take.
+GUI_PAUSE_S = 2.0
+GUI_STOP_S = 30.0
+GUI_TRAIN_S = 300.0
+
+
+def _gui_api(base: str, path: str, body=None):
+    """(JSON reply, HTTP status) of one request to the GUI server."""
+    req = urllib.request.Request(
+        base + path,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+        method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read()), r.status
+    except urllib.error.HTTPError as e:
+        return json.loads(e.read()), e.code
+
+
+def _gui_post(base: str, path: str, body: dict) -> dict:
+    out, status = _gui_api(base, path, body)
+    check(status == 200 and "error" not in out,
+          f"GUI {path} {body}: {status} {out}")
+    return out
+
+
+class _AgentClock:
+    """Wraps a session's opponent: its moves, simulations and seconds."""
+
+    def __init__(self, sess, sims: int):
+        self.play, self.sims = sess.opponent.play, sims
+        self.moves, self.seconds = 0, 0.0
+        sess.opponent.play = self
+
+    def __call__(self, state):
+        t0 = time.perf_counter()
+        action = self.play(state)
+        self.seconds += time.perf_counter() - t0
+        self.moves += 1
+        return action
+
+
+def _gui_agent_legal(env, sess) -> None:
+    """Every agent reply in the session's history was a valid move."""
+    hist = sess.history
+    for before, after in zip(hist, hist[1:]):
+        a = int(after.last_action[0])
+        check(bool(env.valid_moves(before)[0, a]),
+              f"{sess.env_name}: the agent played the illegal action {a}")
+
+
+def gui_play_phase(device, G, base: str, root: str) -> dict:
+    """The GUI's play and analysis over HTTP: the page and lookups; a
+    connect4 game against ``mcts:`` over a random preset-width checkpoint
+    at ``GUI_SIMS``, with the evaluator; chess against rawmcts; stratego's
+    placement; tictactoe hot-seat and networked. Returns the numbers, the
+    sessions' agent clocks and evaluator simulations."""
+    from alphazero_general_tpu_torch.players.evaluator import MCTSEvaluator
+
+    with urllib.request.urlopen(base + "/", timeout=120) as r:
+        page = r.read().decode()
+    check('canvas id="board"' in page, "GUI page without its canvas")
+    envs, _ = _gui_api(base, "/api/envs")
+    check("connect4" in envs["envs"] and "chess" in envs["envs"],
+          f"GUI envs {envs}")
+    args, _ = _gui_api(base, "/api/args?env=connect4")
+    check(args["args"]["numMCTSSims"] == 200
+          and args["args"]["num_channels"] == 128,
+          f"GUI args of connect4: {args}")
+
+    env = get_env("connect4")
+    NNetWrapper(env, preset_args("connect4", seed=SEED),
+                device=device).save_checkpoint(root, "iteration-0001")
+    ticks, clocks = [], []
+    tick = MCTSEvaluator._tick
+
+    def counted_tick(self, tree, first, sims, draws):
+        tick(self, tree, first, sims, draws)
+        ticks.append(sims)
+
+    sync(device)
+    reset_counts()
+    with _Patched(MCTSEvaluator, "_tick", counted_tick), \
+            _PlainCounter(OD, "descend_plain") as pd, \
+            _PlainCounter(OB, "backup_plain_") as pb:
+        out = _gui_post(base, "/api/new", {
+            "env": "connect4", "human_seat": 0, "sims": GUI_SIMS,
+            "opponent": "mcts:" + os.path.join(root, "iteration-0001")})
+        gid = out["game"]
+        sess = G._SESSIONS[gid]
+        check(sess.state.board.device == torch.device(device)
+              and sess.evaluator.device == torch.device(device),
+              f"the GUI session is on {sess.state.board.device}")
+        clock = _AgentClock(sess, GUI_SIMS)
+        clocks.append(clock)
+        for col in GUI_HUMAN_COLUMNS:
+            out = _gui_post(base, "/api/move", {"game": gid,
+                                                "to": [0, col]})
+            check(out["player"] == 0 and not out["terminal"],
+                  f"connect4 after column {col}: {out['message']}")
+        _gui_agent_legal(env, sess)
+        deadline = time.perf_counter() + 30
+        view = out
+        while view["analysis_sims"] == 0 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+            view, _ = _gui_api(base, f"/api/state?game={gid}")
+        check(view["analysis_sims"] > 0
+              and 0.0 <= view["eval_for_human"] <= 1.0,
+              f"the evaluator published {view['analysis_sims']} sims, "
+              f"eval {view['eval_for_human']}")
+        while sess.evaluator.running and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        final = sess.evaluator.analysis
+        check(not final.running and final.sims > 0,
+              f"the evaluator did not finish: {final}")
+        actions = [int(s.last_action[0]) for s in sess.history[1:]]
+        replay = env.init(1, "cpu")
+        for a in actions:
+            replay = env.step(replay, torch.tensor([a], dtype=torch.int32))
+        for name, x in state_items(sess.state).items():
+            check(torch.equal(x.cpu(), getattr(replay, name)),
+                  f"connect4 {name} != the CPU replay of {actions}")
+        shadow = G.GameSession("connect4", "hotseat", 0, device="cpu")
+        for a in actions:
+            shadow._step(a)
+        check(shadow.view()["board"] == view["board"],
+              "the GUI's connect4 board != the CPU session's")
+        out = _gui_post(base, "/api/undo", {"game": gid})
+        check(out["player"] == 0 and out["turns"] == len(actions) - 2
+              and not out["terminal"],
+              f"undo: player {out['player']}, turns {out['turns']}")
+
+        out = _gui_post(base, "/api/new", {"env": "chess", "human_seat": 0,
+                                           "opponent": "rawmcts",
+                                           "sims": 4})
+        cid = out["game"]
+        clocks.append(_AgentClock(G._SESSIONS[cid], 4))
+        check(out["needs_two_clicks"] and out["board"][6][4] == "♙"
+              and out["board"][0][4] == "♚", "chess: not the flipped start")
+        out = _gui_post(base, "/api/move", {"game": cid, "from": [6, 4],
+                                            "to": [4, 4]})
+        check(out["board"][4][4] == "♙" and out["turns"] == 2
+              and out["player"] == 0, f"chess e2e4: {out['message']}")
+        _gui_agent_legal(get_env("chess"), G._SESSIONS[cid])
+
+        out = _gui_post(base, "/api/new", {"env": "stratego",
+                                           "human_seat": 0,
+                                           "opponent": "rawmcts",
+                                           "sims": 4})
+        sid = out["game"]
+        clocks.append(_AgentClock(G._SESSIONS[sid], 4))
+        counts = dict(out["place_counts"])
+        check(counts["F"] == 1 and counts["B"] == 5,
+              f"stratego counts {counts}")
+        out = _gui_post(base, "/api/move", {"game": sid, "to": [0, 0],
+                                            "piece": "F"})
+        censored = [c for row in out["board"] for c in row
+                    if c and c[0] == "?"]
+        check(out["board"][0][0] == "F" and dict(out["place_counts"])["F"]
+              == 0 and out["turns"] == 2 and len(censored) == 1,
+              f"stratego placement: {out['message']}, censored {censored}")
+
+        out = _gui_post(base, "/api/new", {"env": "tictactoe",
+                                           "opponent": "hotseat"})
+        tid = out["game"]
+        out = _gui_post(base, "/api/move", {"game": tid, "to": [0, 0]})
+        check(out["player"] == 1 and out["turns"] == 1, "hot-seat move 1")
+        out = _gui_post(base, "/api/move", {"game": tid, "to": [1, 1]})
+        check(out["player"] == 0 and out["last_move"] == [1, 1],
+              "hot-seat move 2")
+        out = _gui_post(base, "/api/new", {"env": "tictactoe",
+                                           "opponent": "human"})
+        nid, tok0 = out["game"], out["token"]
+        joined = _gui_post(base, "/api/join", {"game": nid})
+        tok1 = joined["token"]
+        out = _gui_post(base, "/api/move", {"game": nid, "to": [0, 0],
+                                            "token": tok1})
+        check(out["turns"] == 0 and "not your turn" in out["message"],
+              "networked: seat 1 moved first")
+        _gui_post(base, "/api/move", {"game": nid, "to": [0, 0],
+                                      "token": tok0})
+        out = _gui_post(base, "/api/move", {"game": nid, "to": [1, 1],
+                                            "token": tok1})
+        check(out["turns"] == 2, "networked: the seats' moves")
+        for s in G._SESSIONS.values():
+            s.evaluator.stop(timeout=60.0)
+        sync(device)
+        launches = read_counts()
+    searched = sum(c.moves * c.sims for c in clocks)
+    expect = dict.fromkeys(COUNTED, 0)
+    if torch.device(device).type == "cuda":
+        expect.update(descend_rows=searched + sum(ticks),
+                      backup_rows=searched + sum(ticks))
+        check(pd.calls == 0 and pb.calls == 0,
+              f"GUI play: plain versions ran ({pd.calls}, {pb.calls})")
+    check(launches == expect,
+          f"GUI play: launches {launches} != expected {expect} "
+          f"(agents {searched}, evaluator {sum(ticks)} simulations)")
+    return dict(sess=sess, launches=launches, agent_sims=searched,
+                evaluator_sims=sum(ticks),
+                agent_ms=clock.seconds * 1e3 / clock.moves,
+                agent_moves=clock.moves,
+                evaluator=(final.sims, final.elapsed))
+
+
+def gui_train_phase(device, G, base: str, root: str) -> dict:
+    """The train panel over HTTP: a session of the connect4 preset cut as
+    ``GUI_TRAIN_CUTS`` says, paused in self-play for ``GUI_PAUSE_S``
+    (no finished game and no kernel launch meanwhile), resumed and run to
+    its end through SELF_PLAY, TRAIN and COMPARE_BASELINE; then a second
+    session stopped in self-play, which must leave ``learn`` within
+    ``GUI_STOP_S``. Checks the game-minor launch counters and that no
+    plain version ran."""
+    dirs = dict(checkpoint=os.path.join(root, "checkpoint"),
+                data=os.path.join(root, "data"),
+                log_dir=os.path.join(root, "runs"))
+    cuda = torch.device(device).type == "cuda"
+
+    def status():
+        return _gui_api(base, "/api/train/status")[0]
+
+    def wait_for(cond, seconds, seen):
+        deadline = time.perf_counter() + seconds
+        while True:
+            st = status()
+            seen.append(st["state"])
+            if cond(st) or time.perf_counter() > deadline:
+                return st
+            time.sleep(0.02)
+
+    def moving(st):
+        return st["state"] == "SELF_PLAY" and (
+            read_counts()["descend"] > 0 if cuda else st["games_played"] > 0)
+
+    out = {}
+    sync(device)
+    reset_counts()
+    seen = []
+    with _PlainCounter(OD, "descend_plain") as pd, \
+            _PlainCounter(OB, "backup_plain_") as pb:
+        t0 = time.perf_counter()
+        _gui_post(base, "/api/train/start", {
+            "env": "connect4", "overrides": dict(
+                GUI_TRAIN_CUTS, run_name="gui", **dirs)})
+        coach = G._TRAIN.coach
+        check(coach.train_net.device == torch.device(device)
+              and bool(coach.args.quant_selfplay),
+              f"the panel's Coach runs on {coach.train_net.device}, "
+              f"quant_selfplay={coach.args.quant_selfplay}")
+        out["net"] = (coach.args.num_channels, coach.args.depth)
+        st = wait_for(moving, 120, seen)
+        check(moving(st), f"the panel's session did not reach self-play: "
+              f"{st}")
+        paused = _gui_post(base, "/api/train/pause", {})
+        check(paused == {"paused": True}, f"pause: {paused}")
+        time.sleep(0.5)  # the move in flight ends
+        held, counts = status(), read_counts()
+        time.sleep(GUI_PAUSE_S)
+        st, after = status(), read_counts()
+        check(st["paused"] and st["state"] == "SELF_PLAY"
+              and st["games_played"] == held["games_played"]
+              and after == counts,
+              f"paused for {GUI_PAUSE_S} s: games {held['games_played']} -> "
+              f"{st['games_played']}, launches {counts} -> {after}, state "
+              f"{st['state']}")
+        out["paused_at"] = dict(games=held["games_played"], launches=counts)
+        check(_gui_post(base, "/api/train/pause", {}) == {"paused": False},
+              "resume")
+        st = wait_for(lambda s: not s["running"], GUI_TRAIN_S, seen)
+        out["wall"] = time.perf_counter() - t0
+        sync(device)
+        launches = read_counts()
+    check(not st["running"] and st["error"] is None and st["model_iter"] == 2
+          and st["state"] == "STANDBY",
+          f"the panel's session ended as {st}")
+    check({"SELF_PLAY", "TRAIN", "COMPARE_BASELINE"} <= set(seen),
+          f"the panel's states {sorted(set(seen))}")
+    check(os.path.exists(os.path.join(dirs["checkpoint"], "gui",
+                                      "iteration-0001.ckpt")),
+          "no iteration-0001.ckpt from the panel's session")
+    if cuda:
+        check(launches["descend"] > 0 and launches["backup"] > 0
+              and pd.calls == 0 and pb.calls == 0,
+              f"the panel's launches {launches}, plain runs "
+              f"({pd.calls}, {pb.calls})")
+    m = _read_metrics(os.path.join(dirs["log_dir"], "gui", "metrics.jsonl"))
+    out.update(launches=launches, states=sorted(set(seen)),
+               times={t[5:]: m[t][1] for t in m if t.startswith("time/")},
+               games=st["games_played"])
+
+    reset_counts()
+    seen = []
+    _gui_post(base, "/api/train/start", {
+        "env": "connect4", "overrides": dict(GUI_TRAIN_CUTS,
+                                             run_name="gui_stop", **dirs)})
+    st = wait_for(moving, 120, seen)
+    check(moving(st), f"the second session did not reach self-play: {st}")
+    t0 = time.perf_counter()
+    check(_gui_post(base, "/api/train/stop", {}) == {"ok": True}, "stop")
+    st = wait_for(lambda s: not s["running"], GUI_STOP_S, seen)
+    out["stop_s"] = time.perf_counter() - t0
+    check(not st["running"] and st["state"] == "STANDBY"
+          and st["error"] is None and st["model_iter"] == 1,
+          f"stopped for {GUI_STOP_S} s, the session is {st}")
+    out["stop_games"] = st["games_played"]
+    return out
+
+
+def gui_phases(device, smi: str) -> tuple:
+    """Phase 33: the port's GUI server (``gui.server.Handler``, on
+    ``device``) in this process, driven over HTTP as a browser would:
+    play and analysis (both batch-major kernels, from the opponents' and
+    the evaluator's searches) and the train panel (both game-minor
+    kernels); then both batch-major kernels bit for bit at the GUI
+    evaluator's tree (B = 1, N = ``GUI_EVAL_SIMS`` + 3), timed. Returns
+    their kernel records and the phase's numbers."""
+    from alphazero_general_tpu_torch.gui import server as G
+
+    t_phase = time.perf_counter()
+    check(G.Handler.device == "cuda", "the GUI's default device is not cuda")
+    server = ThreadingHTTPServer(("127.0.0.1", 0), G.handler_for(device))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_port}"
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            t0 = time.perf_counter()
+            play = gui_play_phase(device, G, base, os.path.join(root, "c4"))
+            play_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            train = gui_train_phase(device, G, base,
+                                    os.path.join(root, "train"))
+            train_s = time.perf_counter() - t0
+    finally:
+        G._stop_train_at_exit()
+        for s in G._SESSIONS.values():
+            s.evaluator.stop(timeout=60.0)
+        server.shutdown()
+        server.server_close()
+    sims, secs = play["evaluator"]
+    log(f"  GUI play: connect4 against mcts: at {GUI_SIMS} simulations, "
+        f"{play['agent_moves']} agent moves, {play['agent_ms']:.1f} ms an "
+        f"agent move; the evaluator {sims} simulations in {secs:.2f} s = "
+        f"{sims / secs:,.0f} sims/s; simulations through the batch-major "
+        f"kernels: agents {play['agent_sims']}, evaluator "
+        f"{play['evaluator_sims']}; launches {play['launches']}; "
+        f"{play_s:.1f} s; card: {smi}")
+    log(f"  GUI train panel: connect4 preset (ResNet {train['net'][0]} x "
+        f"{train['net'][1]}) cut to {GUI_TRAIN_CUTS}: "
+        f"{train['wall']:.1f} s to STANDBY, states {train['states']}, "
+        f"{train['games']} games; phase timers "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in sorted(
+            train["times"].items()))
+        + f"; paused {GUI_PAUSE_S} s at {train['paused_at']['games']} "
+        f"games with the launches held at {train['paused_at']['launches']}"
+        f"; launches {train['launches']}; card: {smi}")
+    log(f"  GUI stop: the second session left learn {train['stop_s']:.2f} s "
+        f"after the stop, at {train['stop_games']} games; {train_s:.1f} s "
+        f"for both sessions; card: {smi}")
+
+    sess = play["sess"]
+    ev = sess.evaluator
+    t0 = time.perf_counter()
+    tree = S.init_batched_trees(sess.env, sess.state, GUI_EVAL_SIMS + 2,
+                                ev.spec.value_size)
+    errs, timing = rows_kernel_phase(sess.env, ev.eval_fn, ev.spec, tree,
+                                     GUI_EVAL_SIMS, GUI_EVAL_SNAPSHOTS,
+                                     device)
+    for k in ("descend_rows", "backup_rows"):
+        log_timing(k, timing[k])
+    log(f"  GUI evaluator's tree (B = 1, N = {GUI_EVAL_SIMS + 3}): both "
+        f"batch-major kernels bit for bit, {time.perf_counter() - t0:.1f} s;"
+        f" card: {smi}")
+    log(f"phase GUI: {time.perf_counter() - t_phase:.1f} s")
+    records = [kernel_record(f"{k}@gui_connect4_b1", k, timing[k],
+                             play["launches"][k], errs[k])
+               for k in ("descend_rows", "backup_rows")]
+    numbers = dict(
+        agent_ms=play["agent_ms"], agent_sims=GUI_SIMS,
+        evaluator_sims_per_s=sims / secs, play_launches=play["launches"],
+        train_wall=train["wall"], train_times=train["times"],
+        train_launches=train["launches"], paused_at=train["paused_at"],
+        stop_s=train["stop_s"], play_s=play_s, train_s=train_s)
+    return records, numbers
+
+
 def main() -> int:
     t_all = time.perf_counter()
     t0 = time.perf_counter()
@@ -4120,15 +4547,18 @@ def main() -> int:
     search_records, search_layer = search_layer_phases(device, smi,
                                                        c4_by_rows)
     multi_records, multi_device = multi_device_phases(device, smi)
+    gui_records, gui = gui_phases(device, smi)
     log(f"total: {time.perf_counter() - t_all:.1f} s")
 
     log(json.dumps({"int8_tower": {"connect4": c4_int8,
                                    "hnefatafl": tafl_int8, "card": smi}}))
     log(json.dumps({"search_layer": dict(search_layer, card=smi)}))
     log(json.dumps({"multi_device": dict(multi_device, card=smi)}))
+    log(json.dumps({"gui": dict(gui, card=smi)}))
     log(smi)
     log(json.dumps({"kernels": records + tafl_records + env_records
-                    + player_records + search_records + multi_records}))
+                    + player_records + search_records + multi_records
+                    + gui_records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": device_count}}))
     return 0

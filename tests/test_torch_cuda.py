@@ -5,7 +5,9 @@ three-player reuse trees, whole searches (connect4, hnefatafl), a reuse
 move, arenas (connect4, brandubh) and an MCTSPlayer move on the card
 against the same on the CPU, searches and an evaluator tick that never
 wait for the device, every env's rollouts on the card against the CPU's,
-and the wrappers' input checks.
+the wrappers' input checks, a GUI session's every batch-major launch
+(its opponent's and its evaluator's) against the plain versions, and a
+Coach paused and stopped on the card.
 
 Every test here is marked ``gpu`` and skips, by a decision taken inside
 the test, where there is no CUDA device. This file imports neither JAX nor
@@ -1234,3 +1236,121 @@ def test_cuda_kernels_match_plain_in_each_rank(tmp_path):
         assert all(out["same"]), (r, out["same"])
         # descend: the compared launch and the snapshot's own walk.
         assert out["launches"] == (2, 1) and out["root_n"] == 20
+
+
+# --------------------------------------------------------------------------
+# The GUI and the Coach's pause and stop
+# --------------------------------------------------------------------------
+
+def _hold_every_rows_launch(monkeypatch, held: Counter, bad: list):
+    """Both batch-major wrappers, wherever the searches look them up,
+    replaced by ones that hold each launch bit for bit against the plain
+    version on CPU copies of its inputs (from any thread: a mismatch is
+    recorded in ``bad``)."""
+    descend, backup = OD.descend_rows, OB.backup_rows_
+
+    def descend_held(*cols_spec):
+        *cols, spec = cols_spec
+        got = descend(*cols, spec)
+        want = OD.descend_plain(*(c.t().cpu() for c in cols), spec.cpuct,
+                                spec.fpu_reduction)
+        if not all(torch.equal(_bits(g.cpu()), _bits(w))
+                   for g, w in zip(got, want)):
+            bad.append(("descend_rows", cols[0].shape))
+        held["descend_rows"] += 1
+        return got
+
+    def backup_held(parent, player, leaf, value, max_depth, n, q, v, spec):
+        args = [x.cpu() for x in (parent, player, leaf, value, max_depth)]
+        p_nqv = [x.cpu() for x in (n, q, v)]
+        backup(parent, player, leaf, value, max_depth, n, q, v, spec)
+        OB.backup_plain_(args[0].t(), args[1].t(), *args[2:],
+                         *(x.t() for x in p_nqv), spec)
+        if not all(torch.equal(_bits(g.cpu()), _bits(w))
+                   for g, w in zip((n, q, v), p_nqv)):
+            bad.append(("backup_rows", parent.shape))
+        held["backup_rows"] += 1
+
+    # The wrappers count their launches on whatever their module's name
+    # holds: these.
+    for held_fn in (descend_held, backup_held):
+        held_fn.launches, held_fn.launches_by_rows = 0, Counter()
+    monkeypatch.setattr(OD, "descend_rows", descend_held)
+    monkeypatch.setattr(OB, "backup_rows_", backup_held)
+
+
+@pytest.mark.gpu
+def test_cuda_gui_session_kernels_match_plain(monkeypatch):
+    """A GUI connect4 session on the card against rawmcts: every launch
+    of both batch-major kernels, the opponent's searches (N = sims + 3)
+    and the live evaluator's (N = 403, on its own thread), bit for bit
+    against the plain versions; the board equals the CPU's replay."""
+    from alphazero_general_tpu_torch.gui import server as G
+
+    dev = _cuda()
+    held, bad = Counter(), []
+    _hold_every_rows_launch(monkeypatch, held, bad)
+    sess = G.GameSession("connect4", "rawmcts", 0, sims=32, device=dev)
+    assert sess.state.board.device.type == "cuda"
+    assert sess.evaluator.device.type == "cuda"
+    sess.start()
+    for col in (3, 3, 2):
+        out = sess.human_move(None, [0, col])
+        assert out["player"] == 0 and not out["terminal"], out["message"]
+    sess.evaluator._thread.join(timeout=60)
+    sess.evaluator.stop()
+    assert sess.evaluator.analysis.sims > 0
+    assert not bad, bad
+    # Three agent moves of 32 simulations, and the evaluator's, each a
+    # launch of both kernels.
+    assert held["descend_rows"] == held["backup_rows"] >= 3 * 32 + 1
+    assert OD.descend_rows.launches == held["descend_rows"]
+    assert OB.backup_rows_.launches == held["backup_rows"]
+    replay = sess.env.init(1, "cpu")
+    for s in sess.history[1:]:
+        replay = sess.env.step(replay, s.last_action.cpu())
+    assert torch.equal(sess.state.board.cpu(), replay.board)
+
+
+@pytest.mark.gpu
+def test_cuda_coach_paused_and_stopped():
+    """A tictactoe Coach on the card, on a thread: paused before its
+    first move it launches no kernel; resumed, it plays; stopped, it
+    leaves self-play and learn, in STANDBY, without training."""
+    import tempfile
+    import threading
+    import time
+
+    from alphazero_general_tpu_torch.models import NNetWrapper
+    from alphazero_general_tpu_torch.train import Coach, TrainState
+    from alphazero_general_tpu_torch.utils import get_args
+
+    dev = _cuda()
+    with tempfile.TemporaryDirectory() as root:
+        args = get_args(
+            run_name="paused", checkpoint=f"{root}/checkpoint",
+            data=f"{root}/data", log_dir=f"{root}/runs", numIters=1,
+            process_batch_size=64, gamesPerIteration=10**6,
+            numWarmupSims=8, num_channels=8, depth=1,
+            value_dense_layers=[8], policy_dense_layers=[8],
+            deviceWindowRows=16384)
+        env = get_env("tictactoe")
+        coach = Coach(env, NNetWrapper(env, args, device=dev), args)
+        coach.pause_train.set()
+        start = OD.descend_columns.launches
+        t = threading.Thread(target=coach.learn, daemon=True)
+        t.start()
+        time.sleep(2.0)
+        assert coach.state == TrainState.SELF_PLAY
+        assert OD.descend_columns.launches == start
+        coach.pause_train.clear()
+        deadline = time.time() + 60
+        while coach.games_played_iter == 0 and time.time() < deadline:
+            time.sleep(0.05)
+        assert coach.games_played_iter > 0
+        coach.stop_train.set()
+        t.join(timeout=60)
+        assert not t.is_alive()
+        assert coach.state == TrainState.STANDBY and coach.model_iter == 1
+        assert OD.descend_columns.launches > start
+        coach.writer.close()

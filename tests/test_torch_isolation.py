@@ -485,12 +485,13 @@ def test_chip_smoke_main_runs_every_phase_in_order(monkeypatch, capsys):
     monkeypatch.setattr(C, "build_phase", lambda: None)
     monkeypatch.setattr(C, "launch_floor_ms", lambda device: 0.001)
     groups = ("connect4", "tafl", "env", "player", "search_layer",
-              "multi_device")
+              "multi_device", "gui")
     for group in groups:
         record = [{"name": group}]
         result = {"connect4": (record, {}, {}), "tafl": (record, {}),
                   "search_layer": (record, {}),
-                  "multi_device": (record, {})}.get(group, record)
+                  "multi_device": (record, {}),
+                  "gui": (record, {})}.get(group, record)
         monkeypatch.setattr(C, f"{group}_phases",
                             lambda d, smi, *rest, g=group, r=result:
                             ran.append(g) or r)
@@ -499,6 +500,50 @@ def test_chip_smoke_main_runs_every_phase_in_order(monkeypatch, capsys):
     assert '"ok": true' in lines[-1]
     assert [r["name"] for r in json.loads(lines[-2])["kernels"]] == list(
         groups)
+    assert json.loads(lines[-4]) == {"gui": {"card": "card, 1 W"}}
+
+
+def test_chip_smoke_gui_phase_rehearses_on_cpu(tmp_path, capsys,
+                                               monkeypatch):
+    """Phase 33 at a tiny size on the CPU, where no kernel launches: the
+    GUI server in this process over HTTP (connect4 against ``mcts:``, the
+    evaluator, chess, stratego, tictactoe hot-seat and networked), the
+    train panel paused, run to its end and a second session stopped, then
+    both batch-major kernels' records at the evaluator's tree."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke as C
+    finally:
+        sys.path.remove(str(REPO))
+    preset = C.preset_args
+    monkeypatch.setattr(C, "preset_args",
+                        lambda name, **kw: preset(name, **{**TINY_NET, **kw}))
+    for name, value in dict(
+            GUI_SIMS=8, GUI_EVAL_SIMS=30, GUI_EVAL_SNAPSHOTS=(5, 29),
+            GUI_PAUSE_S=0.5, HOST_CALLS=2,
+            GUI_TRAIN_CUTS=dict(
+                C.GUI_TRAIN_CUTS, process_batch_size=8,
+                gamesPerIteration=48, arenaCompareBaseline=4,
+                arenaCompare=4, numMCTSSims=4, train_batch_size=16,
+                deviceWindowRows=16384, **TINY_NET)).items():
+        monkeypatch.setattr(C, name, value)
+    monkeypatch.setattr(tempfile, "TemporaryDirectory",
+                        lambda: _Dir(tmp_path))
+    records, numbers = C.gui_phases("cpu", "cpu")
+    assert [r["name"] for r in records] == [
+        "descend_rows@gui_connect4_b1", "backup_rows@gui_connect4_b1"]
+    for r in records:
+        assert r["max_abs_err"] == 0.0 and r["launches"] == 0
+        assert r["N"] == 33 and r["B"] == 1 and r["bound_ms"] > 0
+    assert numbers["agent_ms"] > 0 and numbers["evaluator_sims_per_s"] > 0
+    assert {"self_play", "train", "arena_baseline",
+            "arena_past"} <= set(numbers["train_times"])
+    assert numbers["stop_s"] < C.GUI_STOP_S
+    out = capsys.readouterr().out
+    assert "GUI play: connect4 against mcts: at 8 simulations" in out
+    assert "GUI train panel" in out and "GUI stop" in out
+    assert (tmp_path / "train" / "checkpoint" / "gui"
+            / "iteration-0001.ckpt").exists()
 
 
 #: The multi-device phases at a tiny size: 8 games (4 a rank), an
@@ -573,6 +618,14 @@ def test_parallel_modules_stand_alone():
     mods = set(_port_modules())
     assert {"alphazero_general_tpu_torch.parallel",
             "alphazero_general_tpu_torch.parallel.mesh"} <= mods
+
+
+def test_gui_modules_stand_alone():
+    """The GUI server is among the modules whose imports are held free of
+    JAX above."""
+    mods = set(_port_modules())
+    assert {"alphazero_general_tpu_torch.gui",
+            "alphazero_general_tpu_torch.gui.server"} <= mods
 
 
 class _Dir:

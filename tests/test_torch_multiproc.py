@@ -20,7 +20,10 @@ Coach (the counterpart of tests/test_multiproc.py: a warmup iteration with
 both arenas, then a network one) whose iteration-1 samples are, as a
 multiset, those of JAX's ``mesh_batch_axis=2`` Coach, with per-rank
 sample files, checkpoints from rank 0 only, and the same weights, gating
-state and fast/full coins on both ranks.
+state and fast/full coins on both ranks. In the same two processes, Coaches
+whose rank 0 alone sets ``stop_train`` in its k-th self-play move: both
+ranks leave self-play on the same move (the first count read at or after
+move k: ``PIPE`` + 1 for an early k) and ``learn`` after it.
 """
 
 import json
@@ -47,6 +50,7 @@ from alphazero_general_tpu_torch.selfplay import (
     SelfPlayConfig, init_selfplay, make_move_fns,
 )
 from alphazero_general_tpu_torch.selfplay.replay import ReplayStore
+from alphazero_general_tpu_torch.train.coach import PIPE
 from alphazero_general_tpu_torch.utils import get_args
 from alphazero_general_tpu_torch.utils.convert import resnet_state_dict
 from test_torch_arena import _jax_move_draws
@@ -256,9 +260,13 @@ def test_two_rank_coach_matches_jax_mesh_coach(tmp_path):
 
     # The port: iteration 1 with both arenas and the gating decision, then
     # iteration 2's self-play (fast and full moves: the coins) and train.
+    stop_moves = (5, 12)
     outs = launch("coach", root, dict(args=dict(
         mesh_batch_axis=2, numIters=2, baselineCompareFreq=2,
-        pastCompareFreq=2, **knobs, **dirs("port"))))
+        pastCompareFreq=2, **knobs, **dirs("port")), stop=dict(
+            moves=stop_moves, args=dict(knobs, numIters=1,
+                                        gamesPerIteration=8 * B,
+                                        **dirs("port")))))
     files = sorted(os.listdir(os.path.join(root, "data", "port")))
     assert files == [f"iteration-000{i}-p{r}.npz" for i in (1, 2)
                      for r in (0, 1)], files
@@ -287,3 +295,14 @@ def test_two_rank_coach_matches_jax_mesh_coach(tmp_path):
     assert len(keys) == len(set(keys))
     assert {("arena_past/games", 1), ("arena_baseline/games", 1)} <= set(
         keys)
+
+    # Rank 0's stop at move k: both ranks leave on the same move and end
+    # learn in STANDBY, with no training; rank 1's own event stays clear.
+    for k in stop_moves:
+        a, b = (o["stops"][k] for o in outs)
+        assert a["moves"] == b["moves"] == max(k, PIPE + 1), (k, a, b)
+        assert a["state"] == b["state"] == "STANDBY"
+        assert a["model_iter"] == b["model_iter"] == 1
+        assert a["games"] == b["games"] < 8 * B
+        assert a["stop_set"] and not b["stop_set"]
+        assert max(a["seconds"], b["seconds"]) < 120

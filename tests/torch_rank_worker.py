@@ -18,7 +18,9 @@ found to ``<workdir>/out-<rank>.pt`` and leaves the group. Tasks:
   the same moves with its own draws (``parallel.GameShard``).
 * ``coach``: a 2-iteration tictactoe Coach with the JAX Coach's draws
   (``test_torch_arena.JaxDraws``) cut to this rank's games, recording the
-  fast/full coins it draws.
+  fast/full coins it draws; then, for each move k of ``inputs["stop"]``,
+  a Coach whose rank 0 alone sets ``stop_train`` in its k-th self-play
+  move, recording the moves each rank made.
 * ``kernels``: on the card, both game-minor kernels against their plain
   versions at a snapshot of a search of this rank's games.
 
@@ -31,6 +33,7 @@ import hashlib
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -224,12 +227,46 @@ def task_coach(inp):
     coach._np_rng = _CoinRecorder(coach._np_rng)
     coach.learn()
     coach.writer.close()
+    stops = {k: _stopped_coach(get_args(
+                 {**inp["stop"]["args"], "run_name": f"stop{k}"}), k)
+             for k in inp.get("stop", {}).get("moves", ())}
     return dict(coins=coach._np_rng.coins,
                 digest=state_digest(coach.train_net.model),
                 sp_digest=state_digest(coach.self_play_net.model),
                 self_play_iter=coach.self_play_iter,
                 gating_counter=coach.gating_counter,
-                model_iter=coach.model_iter, ranks=coach.ranks)
+                model_iter=coach.model_iter, ranks=coach.ranks, stops=stops)
+
+
+def _stopped_coach(args, k):
+    """A tictactoe Coach's ``learn`` whose rank 0 sets ``stop_train`` in
+    its k-th self-play move: the moves this rank made, its state, counts
+    and seconds."""
+    from alphazero_general_tpu_torch.train import Coach
+
+    env = get_env("tictactoe")
+    coach = Coach(env, NNetWrapper(env, args, device="cpu"), args)
+    moves = [0]
+    make = coach._get_move_fns
+
+    def counted(model):
+        def wrap(fn):
+            def run(*a, **kw):
+                moves[0] += 1
+                if M.rank() == 0 and moves[0] == k:
+                    coach.stop_train.set()
+                return fn(*a, **kw)
+            return run
+        return {kind: wrap(fn) for kind, fn in make(model).items()}
+
+    coach._get_move_fns = counted
+    t0 = time.perf_counter()
+    coach.learn()
+    coach.writer.close()
+    return dict(moves=moves[0], seconds=time.perf_counter() - t0,
+                state=coach.state.name, model_iter=coach.model_iter,
+                games=coach.games_played_iter,
+                stop_set=coach.stop_train.is_set())
 
 
 def task_kernels(inp):
