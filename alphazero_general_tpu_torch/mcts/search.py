@@ -20,7 +20,11 @@ slice's sink; a fresh ``TreeT`` search may instead run multi-leaf rounds
 (``leaf_batch`` > 1): several walks to one network call.
 
 The loop over simulations runs on the host and never waits for the device:
-nothing in it reads a tensor back.
+nothing in it reads a tensor back. Each call and each stage of a
+simulation runs in a span of ``utils.trace`` (``search``,
+``search.descend``, ``search.expand``, ``search.network``,
+``search.install``, ``search.backup``), which does nothing unless tracing
+is on.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from alphazero_general_tpu_torch.ops.backup import backup_batched, \
     backup_batched_t
 from alphazero_general_tpu_torch.ops.descend import descend_batched, \
     descend_batched_t
+from alphazero_general_tpu_torch.utils import trace
 
 #: Maps observations [B, C, H, W] to (policy [B, A], value [B, V]), both as
 #: probabilities (NNetWrapper.py:225-232).
@@ -65,18 +70,23 @@ def _leaf_step_t(env, tt, spec, eval_fn, root_adjust: bool, slot: int,
     """Everything of one simulation before the backup: walk, expand,
     evaluate, install the prior. Returns the terminal-resolved values."""
     if expand_root_only:
-        obs, leaf_e, leaf_valids = TT.expand_root_t(env, tt)
+        with trace.span("search.expand"):
+            obs, leaf_e, leaf_valids = TT.expand_root_t(env, tt)
     else:
-        walk = descend_batched_t(tt, spec)
-        obs, leaf_e, leaf_valids = TT.apply_walk_observe_t(env, tt, *walk,
-                                                           slot)
-    pi, value = eval_fn(obs)
-    # Terminal leaves back up their stored result (MCTS.pyx:234-235).
-    is_term = (leaf_e > 0).any(dim=-1, keepdim=True)
-    values = torch.where(is_term, leaf_e, value.to(torch.float32))
-    TT.install_prior_t(tt, pi.to(torch.float32), spec, root_adjust, slot,
-                       leaf_valids, gammas=gammas, tie=tie,
-                       generator=generator)
+        with trace.span("search.descend"):
+            walk = descend_batched_t(tt, spec)
+        with trace.span("search.expand"):
+            obs, leaf_e, leaf_valids = TT.apply_walk_observe_t(
+                env, tt, *walk, slot)
+    with trace.span("search.network"):
+        pi, value = eval_fn(obs)
+    with trace.span("search.install"):
+        # Terminal leaves back up their stored result (MCTS.pyx:234-235).
+        is_term = (leaf_e > 0).any(dim=-1, keepdim=True)
+        values = torch.where(is_term, leaf_e, value.to(torch.float32))
+        TT.install_prior_t(tt, pi.to(torch.float32), spec, root_adjust,
+                           slot, leaf_valids, gammas=gammas, tie=tie,
+                           generator=generator)
     return values
 
 
@@ -86,7 +96,8 @@ def _simulate_step_t(env, tt, spec, eval_fn, root_adjust: bool, slot: int,
     """One simulation for every game of ``tt``, in place."""
     values = _leaf_step_t(env, tt, spec, eval_fn, root_adjust, slot,
                           expand_root_only, generator, gammas, tie)
-    backup_batched_t(tt, values, spec)
+    with trace.span("search.backup"):
+        backup_batched_t(tt, values, spec)
 
 
 def _segment_plan(sims: int, rows: int, min_nodes: int = 32):
@@ -130,22 +141,28 @@ def _round_step_t(env, tt, spec, eval_fn, slots, generator, draws):
     B = tt.leaf.shape[0]
     walks = []
     for slot in slots:
-        walk = descend_batched_t(tt, spec)
-        obs, leaf_e, valid = TT.apply_walk_observe_t(env, tt, *walk, slot,
-                                                     multi_leaf=True)
+        with trace.span("search.descend"):
+            walk = descend_batched_t(tt, spec)
+        with trace.span("search.expand"):
+            obs, leaf_e, valid = TT.apply_walk_observe_t(
+                env, tt, *walk, slot, multi_leaf=True)
         walks.append((obs, leaf_e, valid, tt.leaf.clone(), tt.depth.clone()))
-    pi, value = eval_fn(torch.cat([w[0] for w in walks]))
-    pi, value = pi.to(torch.float32), value.to(torch.float32)
+    with trace.span("search.network"):
+        pi, value = eval_fn(torch.cat([w[0] for w in walks]))
+    with trace.span("search.install"):
+        pi, value = pi.to(torch.float32), value.to(torch.float32)
     for i, (slot, (_, leaf_e, valid, leaf, depth)) in enumerate(
             zip(slots, walks)):
         games = slice(i * B, (i + 1) * B)
-        is_term = (leaf_e > 0).any(dim=-1, keepdim=True)
-        values = torch.where(is_term, leaf_e, value[games])
-        tt.leaf.copy_(leaf)
-        tt.depth.copy_(depth)
-        TT.install_prior_t(tt, pi[games], spec, False, slot, valid,
-                           tie=draws.at(slot)[1], generator=generator)
-        backup_batched_t(tt, values, spec)
+        with trace.span("search.install"):
+            is_term = (leaf_e > 0).any(dim=-1, keepdim=True)
+            values = torch.where(is_term, leaf_e, value[games])
+            tt.leaf.copy_(leaf)
+            tt.depth.copy_(depth)
+            TT.install_prior_t(tt, pi[games], spec, False, slot, valid,
+                               tie=draws.at(slot)[1], generator=generator)
+        with trace.span("search.backup"):
+            backup_batched_t(tt, values, spec)
 
 
 def _search_t(env, tt, spec, eval_fn, sims: int, generator, draws,
@@ -184,12 +201,17 @@ def _leaf_step(env, tree, spec, eval_fn, root_adjust: bool, generator,
     """Everything of one simulation on a batch-major ``tree`` before the
     backup: walk, allocate and expand, evaluate, install the prior. Returns
     the terminal-resolved values."""
-    walk = descend_batched(tree, spec)
-    T.apply_walk(env, tree, *walk)
-    pi, value = eval_fn(T.leaf_observation(env, tree))
-    values = T.resolve_value(tree, value.to(torch.float32))
-    T.install_prior(tree, pi.to(torch.float32), spec, root_adjust,
-                    gammas=gammas, tie=tie, generator=generator)
+    with trace.span("search.descend"):
+        walk = descend_batched(tree, spec)
+    with trace.span("search.expand"):
+        T.apply_walk(env, tree, *walk)
+        obs = T.leaf_observation(env, tree)
+    with trace.span("search.network"):
+        pi, value = eval_fn(obs)
+    with trace.span("search.install"):
+        values = T.resolve_value(tree, value.to(torch.float32))
+        T.install_prior(tree, pi.to(torch.float32), spec, root_adjust,
+                        gammas=gammas, tie=tie, generator=generator)
     return values
 
 
@@ -200,7 +222,16 @@ def simulate_step(env, tree, spec, eval_fn, root_adjust: bool,
     ``uniform_slot=None``, ``expand_root_only=False``)."""
     values = _leaf_step(env, tree, spec, eval_fn, root_adjust, generator,
                         gammas, tie)
-    backup_batched(tree, values, spec)
+    with trace.span("search.backup"):
+        backup_batched(tree, values, spec)
+
+
+def _count_work(sims: int, games: int) -> None:
+    """Count a search's work at its entry: its batch simulations and the
+    rows they forward (a round of K walks forwards K·B rows for K
+    simulations)."""
+    trace.count("search.simulations", sims)
+    trace.count("network.rows", sims * games)
 
 
 def search(env, tree, spec: SearchSpec, eval_fn: EvalFn, sims: int,
@@ -236,7 +267,14 @@ def search(env, tree, spec: SearchSpec, eval_fn: EvalFn, sims: int,
     ``tie_noise=0`` draws nothing. Simulation k takes ``draws.at(k)``,
     whether it runs alone, in a segment or in a round.
     """
-    draws = draws or SearchDraws()
+    with trace.span("search"):
+        return _search(env, tree, spec, eval_fn, sims, generator,
+                       fresh_tree, draws or SearchDraws(), leaf_batch)
+
+
+def _search(env, tree, spec, eval_fn, sims, generator, fresh_tree, draws,
+            leaf_batch):
+    """``search`` inside its span, with its draws."""
     if leaf_batch < 1:
         raise ValueError(f"leaf_batch must be >= 1, got {leaf_batch}")
     if isinstance(tree, TT.TreeT):
@@ -246,6 +284,7 @@ def search(env, tree, spec: SearchSpec, eval_fn: EvalFn, sims: int,
         if not 1 <= sims <= tree.capacity:
             raise ValueError(f"sims must be in [1, {tree.capacity}] (the "
                              f"tree's node rows), got {sims}")
+        _count_work(sims, tree.next_free.shape[0])
         return _search_t(env, tree, spec, eval_fn, sims, generator, draws,
                          leaf_batch)
     if not isinstance(tree, T.Tree):
@@ -267,6 +306,7 @@ def search(env, tree, spec: SearchSpec, eval_fn: EvalFn, sims: int,
     if not 1 <= sims <= room:
         raise ValueError(f"sims must be in [1, {room}] (the free rows of the "
                          f"fullest tree), got {sims}")
+    _count_work(sims, tree.next_free.shape[0])
     rows = tree.parent.shape[1]
     segments = (_segment_plan(sims, rows) if fresh_tree
                 else [(rows, 1, sims)])

@@ -162,7 +162,8 @@ def _default_args() -> Args:
         # path (the FC net, GroupNorm) play the float tower.
         quant_selfplay=True,
         # When set, each Coach phase also writes a torch.profiler trace
-        # under <profile_dir>/<phase>-iterNNN (utils/trace.py).
+        # under <profile_dir>/<phase>-iterNNN (utils/trace.py), with the
+        # search's stage spans turned on for the profiled phase.
         profile_dir="",
     )
 

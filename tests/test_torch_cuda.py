@@ -1354,3 +1354,49 @@ def test_cuda_coach_paused_and_stopped():
         assert coach.state == TrainState.STANDBY and coach.model_iter == 1
         assert OD.descend_columns.launches > start
         coach.writer.close()
+
+
+@pytest.mark.gpu
+def test_cuda_search_kernels_launch_inside_their_stage_spans():
+    """A profiled connect4 search on the card with the program's tracing
+    on, in both tree layouts: every launch of a descend kernel lies inside
+    a ``search.descend`` range and every launch of a backup kernel inside
+    a ``search.backup`` range, on the trace's own clock."""
+    from alphazero_general_tpu_torch.utils import trace
+
+    dev = _cuda()
+    env = get_env("connect4")
+    spec = SearchSpec(**dict(SPEC_KW, tie_noise=0.0))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with trace.tracing(), torch.profiler.profile(activities=acts) as prof:
+        S.search(env, init_tree_t(env, _openings(256, dev), 40, 3), spec,
+                 _eval_fn, 24)
+        S.search(env, T.init_tree(env, _openings(1, dev), 40, 3), spec,
+                 _eval_fn, 24)
+        torch.cuda.synchronize()
+    trace.reset()
+    ranges = {"descend": [], "backup": []}
+    launch, kernels = {}, []
+    for e in prof.profiler.kineto_results.events():
+        start, end = e.start_ns(), e.start_ns() + e.duration_ns()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            # The ranges laid over the device's timeline are no kernels.
+            kind = [k for k in ranges if k in e.name()
+                    and not e.name().startswith("search")]
+            if kind:
+                kernels.append((kind[0], e.correlation_id()))
+        elif e.name() in ("search.descend", "search.backup"):
+            ranges[e.name().split(".")[1]].append((start, end))
+        elif e.name().startswith("cu") and e.correlation_id():
+            launch[e.correlation_id()] = start
+    placed = Counter()
+    for kind, corr in kernels:
+        if corr in launch:
+            t = launch[corr]
+            assert any(s <= t <= e for s, e in ranges[kind]), (kind, t)
+            placed[kind] += 1
+    # 23 descends on the TreeT (the root's expansion walks nowhere) and 24
+    # on the one-game Tree; 24 backups on each. The profiler may lose a
+    # few records of a long run; it keeps most.
+    assert placed["descend"] >= 40 and placed["backup"] >= 40, placed
