@@ -20,14 +20,22 @@ and the arena take either. Re-quantizing (``quantize_resnet(..., out=q)``)
 writes its buffers in place, so runners built over it follow.
 
 Layout: activations are NHWC, as in JAX: a [B, H, W, C] tensor is a
-[B·H·W, C] matrix of rows. A 3x3 tower conv (``conv3x3_int8``) is one
-``torch._int_mm`` (cuBLASLt's int8 product into int32 on the card) of the
-9-tap patch matrix [B·H·W, 9C] and the weight, whose HWIO [3, 3, C, C]
-reshapes to the [9C, C] right-hand side with no permutation. The JAX
-package leaves this product to XLA (``lax.conv_general_dilated`` into
-int32), so the port leaves it to the library too. Int8 products summed
-into int32 are exact (|acc| <= 127² · 9C < 2³¹), so the accumulators equal
-JAX's whenever the int8 inputs do.
+[B·H·W, C] matrix of rows. The weight of a 3x3 tower conv, HWIO [3, 3, C,
+C], reshapes to the [9C, C] right-hand side of the 9-tap patch matrix with
+no permutation (``int8_weight_matrix`` stores it transposed). Int8
+products summed into int32 are exact (|acc| <= 127² · 9C < 2³¹), so the
+accumulators equal JAX's (``lax.conv_general_dilated`` into int32)
+whenever the int8 inputs do.
+
+A residual block is two calls, each a tower conv with the chain that
+follows it: ``conv_quantize`` (conv1, then conv2's quantizer) and
+``conv_residual`` (conv2, the residual sum, and the next block's
+quantizer). On the card each is one launch of the fused implicit-GEMM
+kernel of ``csrc/conv_int8.cu``; on the CPU each runs its plain version
+(``conv_quantize_plain``, ``conv_residual_plain``): ``conv3x3_int8`` (the
+padded input, the patch matrix and one ``torch._int_mm``), ``_quantize``
+and the residual ops. The kernel's outputs are bit-equal to the plain
+versions run on the card.
 
 Numerics kept from the JAX package as XLA compiles it under ``jit``:
 ``round`` is half-to-even in both; every scale product of the parameters
@@ -44,12 +52,17 @@ to bf16 as JAX's do.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from alphazero_general_tpu_torch.envs.core import state_items
 from alphazero_general_tpu_torch.models.architectures import ResNet
+from alphazero_general_tpu_torch.ops.build import current_stream, \
+    load_library
+from alphazero_general_tpu_torch.utils import trace
 
 BN_EPS = 1e-5  # flax.linen.BatchNorm default
 #: cuBLASLt's int8 product takes more than 16 rows and inner and outer
@@ -57,6 +70,10 @@ BN_EPS = 1e-5  # flax.linen.BatchNorm default
 #: rows, and channel counts to a multiple of ``ALIGN``.
 MIN_ROWS = 17
 ALIGN = 8
+#: Output rows a block of the fused conv kernel takes at a time, and the
+#: shared memory one block may use on an H100 (227 KB).
+CONV_TILE_ROWS = 128
+SMEM_PER_BLOCK = 232448
 
 
 def _ceil(n: int, k: int) -> int:
@@ -111,7 +128,9 @@ def conv3x3_int8(q: torch.Tensor, wt: torch.Tensor,
     with a weight laid out by ``int8_weight_matrix``, into int32 [B, H, W,
     out_channels]: zero padding (zero point 0, so it matches 'SAME'), the
     9-tap patch matrix [B·H·W, 9·C8] from slices of the padded tensor, and
-    one ``torch._int_mm``. On the card a failure of the product raises.
+    one ``torch._int_mm`` (cuBLASLt's on the card, where a failure of the
+    product raises). The plain versions' conv; the forward's own route on
+    the card is the fused kernel.
     The padding and the patch matrix are copied as int32 words of 4
     channels each: the same bytes, moved by copies of 4-byte elements
     (byte-wide copies of them were slower on an H100; PERF.md has both)."""
@@ -139,6 +158,162 @@ def _quantize(t: torch.Tensor, s: torch.Tensor, b: torch.Tensor):
     """clip(round(relu(t * s + b)), 0, 127) as int8; ``s`` and ``b`` carry
     the 127 / a quant scale (the ReLU is the clip's lower bound)."""
     return torch.addcmul(b, t, s).round_().clamp_(0.0, 127.0).to(torch.int8)
+
+
+def conv_quantize_plain(q: torch.Tensor, wt: torch.Tensor, s: torch.Tensor,
+                        b: torch.Tensor) -> torch.Tensor:
+    """The first conv of a block, quantized for the second: int8 [B, H, W,
+    Cout] from int8 ``q`` [B, H, W, Cin] and a weight ``wt`` [Cout, 9·Cin]
+    laid out by ``int8_weight_matrix``, with the second conv's quantizer
+    ``s``, ``b`` (which fold in the first conv's dequantization)."""
+    return _quantize(conv3x3_int8(q, wt, wt.shape[0]), s, b)
+
+
+def conv_residual_plain(q: torch.Tensor, wt: torch.Tensor, x: torch.Tensor,
+                        d: torch.Tensor, s: torch.Tensor | None = None,
+                        b: torch.Tensor | None = None) -> tuple:
+    """The second conv of a block and the residual sum: ``(x', q')``, the
+    new bf16 residual stream ``x' = bf16(xf)`` with ``xf = float(x) +
+    float(bf16(acc · d))``, and the next block's int8 input quantized from
+    the unrounded float32 ``xf`` with ``s``, ``b`` (None without them: the
+    last block)."""
+    acc = conv3x3_int8(q, wt, wt.shape[0])
+    # The residual stream stays bf16; the next quantize reads the float32
+    # sum before its rounding.
+    xf = x.to(torch.float32).add_((acc * d).to(torch.bfloat16))
+    return xf.to(torch.bfloat16), None if s is None else _quantize(xf, s, b)
+
+
+def conv_smem_bytes(width: int, cin: int, cout: int, residual: bool) -> int:
+    """Shared memory of one block of the fused conv kernel (``layout`` in
+    csrc/conv_int8.cu): the weight's rows for the output channels padded
+    to 16 · a power of two, two tiles of input rows with their halo, a
+    zero row and the staging tile of the outputs."""
+    ncta = 16
+    while ncta < cout:
+        ncta *= 2
+    cin32 = _ceil(cin, 32)
+    rows = CONV_TILE_ROWS + 2 * (width + 1)
+    return (ncta * (9 * cin32 + 16) + 2 * rows * (cin32 + 16) + cin32
+            + CONV_TILE_ROWS * ((2 if residual else 1) * ncta + 16))
+
+
+@functools.lru_cache(maxsize=None)
+def _check_fits(width: int, cin: int, cout: int, residual: bool) -> None:
+    """Raise for widths the kernel cannot hold in a block's shared memory:
+    more than 128 output channels, more than ``SMEM_PER_BLOCK`` bytes, or
+    (the second conv stages its codes in a tile's input rows) more output
+    channels than input channels rounded up to 32."""
+    need = conv_smem_bytes(width, cin, cout, residual)
+    codes = CONV_TILE_ROWS * (_ceil(cout, 16) + 16)
+    if (cout > 128 or need > SMEM_PER_BLOCK or codes > (
+            CONV_TILE_ROWS + 2 * (width + 1)) * (_ceil(cin, 32) + 16)):
+        raise ValueError(
+            f"conv: {cin} -> {cout} channels on a board {width} wide need "
+            f"{need} bytes of shared memory a block (at most 128 output "
+            f"channels, no more than the input's rounded up to 32, and "
+            f"{SMEM_PER_BLOCK} bytes)")
+
+
+def _check_conv(q, wt, x, vectors: dict) -> tuple:
+    """Raise on operands the fused conv does not take: the wrong dtype,
+    shape or device, channels that are not a multiple of ``ALIGN`` or do
+    not match the weight's, rows that are not contiguous. Returns (rows,
+    H, W, Cin, Cout). Every launch of a forward makes these checks, so the
+    common case reads each attribute once."""
+    if q.dtype != torch.int8 or wt.dtype != torch.int8:
+        raise TypeError(f"conv: int8 activations and weight, got {q.dtype} "
+                        f"and {wt.dtype}")
+    if q.dim() != 4 or wt.dim() != 2:
+        raise ValueError(f"conv: activations [B, H, W, C] and a weight "
+                         f"[Cout, 9·C], got {tuple(q.shape)} and "
+                         f"{tuple(wt.shape)}")
+    bsz, h, w, cin = q.shape
+    cout, k = wt.shape
+    if cin % ALIGN or cout % ALIGN or k != 9 * cin:
+        raise ValueError(f"conv: {cin} input channels against a weight of "
+                         f"{(cout, k)}; channels must be multiples of "
+                         f"{ALIGN} and the weight [Cout, 9·{cin}]")
+    if x is not None:
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"conv: a bf16 residual stream, got {x.dtype}")
+        if x.shape != (bsz, h, w, cout):
+            raise ValueError(f"conv: residual stream {tuple(x.shape)}, "
+                             f"expected {(bsz, h, w, cout)}")
+    for name, v in vectors.items():
+        if v.dtype != torch.float32 or v.shape != (cout,):
+            raise ValueError(f"conv: {name} must be float32 [{cout}], got "
+                             f"{v.dtype} {tuple(v.shape)}")
+    device = q.device
+    for name, t in (("q", q), ("wt", wt), ("x", x), *vectors.items()):
+        if t is not None and (t.device != device or not t.is_contiguous()):
+            raise ValueError(f"conv: {name} must be contiguous and on "
+                             f"{device}, the activations' device; it is on "
+                             f"{t.device}")
+    return bsz * h * w, h, w, cin, cout
+
+
+def _launch_conv(q, wt, x, s, b, d, out_q, out_x, shape) -> None:
+    """One launch of the fused conv on CUDA tensors; raises where the
+    kernel cannot take the shape or the launch fails."""
+    rows, h, w, cin, cout = shape
+    device = q.device
+    if device.type != "cuda":
+        raise ValueError(f"conv runs on cuda or cpu, not {device}")
+    _check_fits(w, cin, cout, x is not None)
+    for t in (q, wt, x, s, b, d):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("conv: every operand must start at a multiple "
+                             "of 16 bytes")
+    if rows:
+        ptr = (lambda t: None if t is None else t.data_ptr())
+        err = load_library().azg_conv3x3_int8(
+            *map(ptr, (q, wt, x, s, b, d, out_q, out_x)), rows, h, w, cin,
+            cout, device.index, current_stream(device.index))
+        if err != 0:
+            raise RuntimeError(f"conv kernel launch failed: CUDA error {err}")
+    trace.count("network.conv_int8", 1)
+
+
+def conv_quantize(q: torch.Tensor, wt: torch.Tensor, s: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """``conv_quantize_plain``'s function: the fused kernel for CUDA
+    tensors (one launch, counted in ``conv_quantize.launches``), the plain
+    version for CPU tensors."""
+    shape = _check_conv(q, wt, None, dict(s=s, b=b))
+    if q.device.type == "cpu":
+        return conv_quantize_plain(q, wt, s, b)
+    out = torch.empty(q.shape[:-1] + (shape[-1],), dtype=torch.int8,
+                      device=q.device)
+    _launch_conv(q, wt, None, s, b, None, out, None, shape)
+    conv_quantize.launches += 1
+    return out
+
+
+conv_quantize.launches = 0
+
+
+def conv_residual(q: torch.Tensor, wt: torch.Tensor, x: torch.Tensor,
+                  d: torch.Tensor, s: torch.Tensor | None = None,
+                  b: torch.Tensor | None = None) -> tuple:
+    """``conv_residual_plain``'s function: the fused kernel for CUDA
+    tensors (one launch, counted in ``conv_residual.launches``), the plain
+    version for CPU tensors."""
+    if (s is None) != (b is None):
+        raise ValueError("conv_residual: give both s and b, or neither")
+    vectors = dict(d=d) if s is None else dict(d=d, s=s, b=b)
+    shape = _check_conv(q, wt, x, vectors)
+    if q.device.type == "cpu":
+        return conv_residual_plain(q, wt, x, d, s, b)
+    out_x = torch.empty_like(x)
+    out_q = None if s is None else torch.empty(
+        x.shape, dtype=torch.int8, device=x.device)
+    _launch_conv(q, wt, x, s, b, d, out_q, out_x, shape)
+    conv_residual.launches += 1
+    return out_x, out_q
+
+
+conv_residual.launches = 0
 
 
 def _conv_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -306,32 +481,47 @@ class QuantResNet(nn.Module):
                           getattr(self, f"{h}_s")).to(torch.bfloat16)
         return self._mlp(y.reshape(b, -1), head)
 
+    def _block(self, i: int, c8: int) -> dict:
+        """Block ``i``'s weights and per-channel vectors, the vectors
+        padded with zeros to ``c8`` channels."""
+        blk = {k: getattr(self, f"block{i}_{k}")
+               for k in ("s1", "b1", "w1", "s2", "b2", "w2", "d2")}
+        if c8 != self.channels:
+            for k in ("s1", "b1", "s2", "b2", "d2"):
+                blk[k] = F.pad(blk[k], (0, c8 - self.channels))
+        return blk
+
     def _tower(self, obs: torch.Tensor, operands=None) -> torch.Tensor:
         """Stem and residual tower: the bf16 residual stream [B, H, W, C].
         Each tower conv's int8 input and weight are appended to
-        ``operands`` where given."""
+        ``operands`` where given. A width that is not a multiple of
+        ``ALIGN`` runs padded with zero channels (their weights, scales
+        and so their codes and stream are zero)."""
         c = self.channels
+        c8 = _ceil(c, ALIGN)
         x = obs.permute(0, 2, 3, 1).to(torch.bfloat16)
         y = F.conv2d(x.permute(0, 3, 1, 2).to(torch.float32), self.stem_w,
                      padding=1)
+        # The stem's NHWC view is contiguous where the conv's output is
+        # channels-last; the fused convs take contiguous rows.
         x = torch.relu(torch.addcmul(self.stem_b, y.permute(0, 2, 3, 1),
-                                     self.stem_s)).to(torch.bfloat16)
-        xf = x
+                                     self.stem_s)).to(torch.bfloat16) \
+            .contiguous()
+        if c8 != c:
+            x = F.pad(x, (0, c8 - c))
+        blk = self._block(0, c8)
+        q = _quantize(x, blk["s1"], blk["b1"])
         for i in range(self.depth):
-            blk = {k: getattr(self, f"block{i}_{k}")
-                   for k in ("s1", "b1", "w1", "s2", "b2", "w2", "d2")}
-            acc = xf
-            for conv in ("1", "2"):
-                q = _quantize(acc, blk["s" + conv], blk["b" + conv])
-                if operands is not None:
-                    operands.append((q, blk["w" + conv]))
-                acc = conv3x3_int8(q, blk["w" + conv], c)
-            # The residual stream stays bf16; the next quantize reads the
-            # float32 sum before its rounding.
-            xf = x.to(torch.float32).add_(
-                (acc * blk["d2"]).to(torch.bfloat16))
-            x = xf.to(torch.bfloat16)
-        return x
+            nxt = self._block(i + 1, c8) if i + 1 < self.depth else {}
+            if operands is not None:
+                operands.append((q, blk["w1"]))
+            q = conv_quantize(q, blk["w1"], blk["s2"], blk["b2"])
+            if operands is not None:
+                operands.append((q, blk["w2"]))
+            x, q = conv_residual(q, blk["w2"], x, blk["d2"], nxt.get("s1"),
+                                 nxt.get("b1"))
+            blk = nxt
+        return x if c8 == c else x[..., :c]
 
     def forward(self, obs: torch.Tensor):
         QuantResNet.forwards += 1
@@ -341,9 +531,10 @@ class QuantResNet(nn.Module):
         return (F.log_softmax(pi, dim=-1), F.log_softmax(v, dim=-1))
 
     def conv_operands(self, obs: torch.Tensor) -> list:
-        """(int8 input [B, H, W, C], weight) of each tower conv that
-        ``forward(obs)`` multiplies, in order: what a check holds one
-        device's products to another's with."""
+        """(int8 input [B, H, W, C8], weight) of each tower conv that
+        ``forward(obs)`` multiplies, in order (on the card, the fused
+        kernels' own outputs): what a check holds one device's products to
+        another's with."""
         operands = []
         self._tower(obs, operands)
         return operands

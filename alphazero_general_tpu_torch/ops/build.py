@@ -45,6 +45,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _DESCEND = ([_P] * 9 + [_I, _I, _I, _F, _F, _P, _P, _I, _P], _I)
 _BACKUP = ([_P] * 8 + [_I] * 5 + [_F, _I, _I, _P], _I)
+_CONV = ([_P] * 8 + [_I] * 6 + [_P], _I)
 #: C signature of every entry point: (argtypes, restype). The ``_rows``
 #: entry points take batch-major [B, N] tree columns, the others
 #: game-minor [N, B] ones, with the same arguments.
@@ -53,6 +54,7 @@ SIGNATURES = {
     "azg_descend_rows": _DESCEND,
     "azg_backup": _BACKUP,
     "azg_backup_rows": _BACKUP,
+    "azg_conv3x3_int8": _CONV,
 }
 
 

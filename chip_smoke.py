@@ -39,8 +39,11 @@ Phases, each printed with its seconds; the first failure exits non-zero:
    ``INT8_CARD_ATOL`` of the CPU's, the accuracy bounds of
    tests/test_quant.py:42-60 against the bf16 ResNet; both forwards'
    device times and kernel launches, one tower conv int8 against bf16
-   beside its bound; then the 4 self-play moves again over the int8
-   tower, with the same launch checks, beside the bf16 moves' sims/s.
+   beside its bound; both fused tower conv kernels (csrc/conv_int8.cu)
+   equal to their plain versions at the main path's shape, timed cold,
+   warm and on the host beside their bounds and the plain chain; then the
+   4 self-play moves again over the int8 tower, with the same launch
+   checks, beside the bf16 moves' sims/s.
 6. reuse: 8 moves (the same cycle twice) of the production config with
    tree reuse (N = 403 rows) from random openings, with launch counters
    proving that every simulation went through both batch-major kernels;
@@ -382,6 +385,8 @@ INT8_CARD_ATOL = 0.05
 INT8_CHECK_GAMES = 64
 #: Forwards timed per measurement of the int8 phase.
 INT8_REPS = 20
+#: The fused tower conv kernel's name in a profiler trace.
+FUSED_CONV = "conv3x3_int8_gemm"
 #: Dense tensor-core peaks of one H100 SXM (NVIDIA data sheet), for the
 #: tower conv's bound.
 INT8_OPS_PER_S = 1979e12
@@ -1680,6 +1685,65 @@ def int8_conv_bound(rows: int, channels: int) -> dict:
                 bytes=(int8_bytes, patch_bytes, bf16_bytes))
 
 
+def fused_conv_bound(rows: int, channels: int) -> dict:
+    """Least time of each fused tower conv kernel (csrc/conv_int8.cu) on
+    ``rows`` NHWC rows: the operations of one 3x3 conv at the int8 peak,
+    or the bytes it must move at HBM's rate, each input read once and each
+    output written once. ``quantize``: int8 rows in, the weight, int8 codes
+    out; ``residual``: int8 rows, the weight and the bf16 stream in, the
+    bf16 stream and int8 codes out (``residual_last`` without the codes).
+    Returns (ms, what bounds it, bytes) for each."""
+    ops = 2 * rows * 9 * channels * channels
+    rc, w = rows * channels, 9 * channels * channels
+    moved = dict(quantize=2 * rc + w, residual=rc + w + 4 * rc + rc,
+                 residual_last=rc + w + 4 * rc)
+    out = {}
+    for k, nbytes in moved.items():
+        t_ops = ops / INT8_OPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[k] = (max(t_ops, t_bytes),
+                  "operations" if t_ops >= t_bytes else "bytes", nbytes)
+    return out
+
+
+def fused_conv_phase(q, operands, batch: int, device) -> dict:
+    """Both fused tower conv kernels at the main path's shape (block 0's
+    convs, a random bf16 stream): bit-equal to their plain versions on the
+    card, then each kernel's device time cold (L2 flushed) and warm (back
+    to back), its wrapper's host time, and the plain chain's time, beside
+    the bound."""
+    c = q.channels
+    blk, nxt = q._block(0, c), q._block(min(1, q.depth - 1), c)
+    (a1, w1), (a2, w2) = operands[0], operands[1]
+    x = torch.randn(a2.shape, generator=torch.Generator(device).manual_seed(
+        SEED + 18), device=device).to(torch.bfloat16)
+    calls = dict(
+        quantize=(lambda: Q.conv_quantize(a1, w1, blk["s2"], blk["b2"]),
+                  lambda: Q.conv_quantize_plain(a1, w1, blk["s2"],
+                                                blk["b2"])),
+        residual=(lambda: Q.conv_residual(a2, w2, x, blk["d2"], nxt["s1"],
+                                          nxt["b1"]),
+                  lambda: Q.conv_residual_plain(a2, w2, x, blk["d2"],
+                                                nxt["s1"], nxt["b1"])),
+        residual_last=(lambda: Q.conv_residual(a2, w2, x, blk["d2"]),
+                       lambda: Q.conv_residual_plain(a2, w2, x, blk["d2"])))
+    out = {}
+    for name, (fused, plain) in calls.items():
+        got, want = fused(), plain()
+        got, want = (got, want) if name == "quantize" else (got[0], want[0])
+        check(torch.equal(got.view(torch.int16) if got.dtype == torch.bfloat16
+                          else got, want.view(torch.int16)
+                          if want.dtype == torch.bfloat16 else want),
+              f"fused conv ({name}) differs from its plain version")
+        out[name] = dict(
+            cold_ms=kernel_ms(fused, INT8_REPS, device, FUSED_CONV, True),
+            warm_ms=kernel_ms(fused, INT8_REPS, device, FUSED_CONV),
+            host_ms=host_ms(fused, 200, device),
+            plain_ms=time_ms(plain, INT8_REPS, device))
+    out["bound"] = fused_conv_bound(a1.numel() // a1.shape[-1], c)
+    return out
+
+
 def int8_phase(env, net, batch: int, device, gate_agreement: bool = True
                ) -> dict:
     """The int8 tower of ``net`` (random weights) at ``batch`` games:
@@ -1768,7 +1832,8 @@ def int8_phase(env, net, batch: int, device, gate_agreement: bool = True
             patches_words_ms=time_ms(lambda: patches_of(torch.int32),
                                      INT8_REPS, device),
             conv_bf16_ms=time_ms(lambda: conv16(x16), INT8_REPS, device),
-            bound=int8_conv_bound(rows, c))
+            bound=int8_conv_bound(rows, c),
+            fused=fused_conv_phase(q, operands, batch, device))
     return out
 
 
@@ -1796,6 +1861,16 @@ def log_int8(name: str, r: dict, smi: str) -> None:
     log(f"  {name} the patch matrix from the padded input: "
         f"{r['patches_words_ms']:.4f} ms copied as int32 words, "
         f"{r['patches_bytes_ms']:.4f} ms as bytes")
+    for k, f in r["fused"].items():
+        if k == "bound":
+            continue
+        ms, what, nbytes = r["fused"]["bound"][k]
+        log(f"  {name} fused conv {k} ({FUSED_CONV}, equal to its plain "
+            f"version): cold {f['cold_ms']:.4f} ms, warm "
+            f"{f['warm_ms']:.4f}, host {f['host_ms']:.4f}; bound "
+            f"{ms:.4f} ms ({what}, {nbytes:,} bytes); the plain chain "
+            f"{f['plain_ms']:.4f} ms; torch._int_mm alone "
+            f"{r['int_mm_ms']:.4f} ms")
 
 
 #: The FC net and a GroupNorm tower on the card at small widths.

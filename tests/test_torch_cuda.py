@@ -6,8 +6,9 @@ move, arenas (connect4, brandubh) and an MCTSPlayer move on the card
 against the same on the CPU, searches and an evaluator tick that never
 wait for the device, every env's rollouts on the card against the CPU's,
 the wrappers' input checks, a GUI session's every batch-major launch
-(its opponent's and its evaluator's) against the plain versions, and a
-Coach paused and stopped on the card.
+(its opponent's and its evaluator's) against the plain versions, a
+Coach paused and stopped on the card, and the int8 tower's fused conv
+kernels against their plain versions at every preset's shape.
 
 Every test here is marked ``gpu`` and skips, by a decision taken inside
 the test, where there is no CUDA device. This file imports neither JAX nor
@@ -215,6 +216,8 @@ def test_cuda_wrappers_reject_bad_inputs():
 
 
 def _bits(x):
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16)
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
@@ -751,11 +754,22 @@ def test_cuda_env_rollouts_match_cpu(name):
     (512, (11, 11), 128, 128),   # hnefatafl production width
     (3, (6, 7), 12, 20),         # channels padded to multiples of 8
     (1, (3, 3), 8, 8),           # 9 rows, padded past cuBLASLt's 16
-], ids=["connect4", "hnefatafl", "padded_channels", "padded_rows"])
+    (1, (6, 7), 128, 128),       # connect4, one game
+    (1024, (7, 7), 128, 128),    # brandubh
+    (512, (8, 8), 64, 64),       # othello
+    (256, (15, 15), 64, 64),     # gobang
+    (1, (3, 3), 32, 32),         # tictactoe, one game: 9 rows
+    (3, (6, 7), 40, 40),         # input channels not a multiple of 32
+], ids=["connect4", "hnefatafl", "padded_channels", "padded_rows",
+        "connect4_one_game", "brandubh", "othello", "gobang", "tictactoe",
+        "cin_not_x32"])
 def test_cuda_conv3x3_int8_matches_cpu(batch, hw, cin, cout):
     """The int8 tower conv (torch._int_mm on the card) gives the CPU's
     int32 accumulators exactly for the same int8 input, extremes of both
-    ranges included."""
+    ranges included. Where a tower has the shape (Cin = Cout, a multiple of
+    8), both fused kernels (``conv_quantize``, ``conv_residual`` with and
+    without the next quantizer) equal their plain versions run on the card,
+    bit for bit, with scales that spread the codes over [0, 127]."""
     from alphazero_general_tpu_torch.models import quant as Q
 
     dev = _cuda()
@@ -767,10 +781,33 @@ def test_cuda_conv3x3_int8_matches_cpu(batch, hw, cin, cout):
     q[0, 0, 0] = 127
     w[..., 0] = 127
     want = Q.conv3x3_int8(q, Q.int8_weight_matrix(w), cout)
-    got = Q.conv3x3_int8(q.to(dev), Q.int8_weight_matrix(w.to(dev)), cout)
+    wt = Q.int8_weight_matrix(w.to(dev))
+    got = Q.conv3x3_int8(q.to(dev), wt, cout)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and got.shape == (batch, *hw, cout)
     assert torch.equal(got.cpu(), want)
+    if cin != cout or cin % Q.ALIGN:
+        return
+    spread = float(want.to(torch.float32).std()) + 1.0
+    s, b, d, s1, b1 = (torch.rand(cout, generator=gen) * k + m for k, m in (
+        (80 / spread, 0.0), (60, -18), (2 / spread, 0.0), (30, 0.0),
+        (20, -6)))
+    x = torch.randn((batch, *hw, cout), generator=gen).to(torch.bfloat16)
+    q, s, b, d, s1, b1, x = (t.to(dev) for t in (q, s, b, d, s1, b1, x))
+    launches = (Q.conv_quantize.launches, Q.conv_residual.launches)
+    pairs = [(Q.conv_quantize(q, wt, s, b),
+              Q.conv_quantize_plain(q, wt, s, b))]
+    for nxt in ((s1, b1), (None, None)):
+        pairs += zip(Q.conv_residual(q, wt, x, d, *nxt),
+                     Q.conv_residual_plain(q, wt, x, d, *nxt))
+    torch.cuda.synchronize()
+    assert (Q.conv_quantize.launches, Q.conv_residual.launches) == (
+        launches[0] + 1, launches[1] + 2)
+    assert pairs[-1] == (None, None)
+    for k, (a, p) in enumerate(pairs[:-1]):
+        assert a.dtype == p.dtype and a.shape == p.shape, k
+        assert torch.equal(_bits(a), _bits(p)), k
+    assert pairs[0][1].unique().numel() > 8  # codes spread, not clipped
 
 
 @pytest.mark.gpu
@@ -804,6 +841,45 @@ def test_cuda_int8_tower_matches_cpu():
         for a, w in qs[dev].conv_operands(obs.to(dev)):
             assert torch.equal(Q.conv3x3_int8(a, w, 32).cpu(),
                                Q.conv3x3_int8(a.cpu(), w.cpu(), 32))
+
+
+@pytest.mark.gpu
+def test_cuda_int8_forward_runs_the_fused_kernels(monkeypatch):
+    """The int8 forward on the card goes through the fused kernels, two
+    launches a block (the wrappers' counters and the ``network.conv_int8``
+    trace counter), and equals the same forward through the plain
+    versions on the card, bit for bit."""
+    from alphazero_general_tpu_torch.models import NNetWrapper
+    from alphazero_general_tpu_torch.models import quant as Q
+    from alphazero_general_tpu_torch.utils import get_args, trace
+
+    dev = _cuda()
+    env = get_env("connect4")
+    net = NNetWrapper(env, get_args(
+        num_channels=64, depth=3, value_head_channels=8,
+        policy_head_channels=8, value_dense_layers=[32],
+        policy_dense_layers=[32]), device=dev)
+    q = net.quantized_inference(calib_obs=Q.calibration_observations(
+        env, batch=64, moves=12, device=dev,
+        generator=torch.Generator(dev).manual_seed(0)))
+    obs = Q.calibration_observations(
+        env, batch=256, moves=2, device=dev,
+        generator=torch.Generator(dev).manual_seed(1))
+    before = Q.conv_quantize.launches + Q.conv_residual.launches
+    trace.reset()
+    with torch.inference_mode(), trace.tracing():
+        fused = q(obs)
+        torch.cuda.synchronize()
+    assert (Q.conv_quantize.launches + Q.conv_residual.launches
+            == before + 2 * q.depth)
+    assert trace.snapshot()["counters"]["network.conv_int8"] == 2 * q.depth
+    trace.reset()
+    monkeypatch.setattr(Q, "conv_quantize", Q.conv_quantize_plain)
+    monkeypatch.setattr(Q, "conv_residual", Q.conv_residual_plain)
+    with torch.inference_mode():
+        plain = q(obs)
+    for a, p in zip(fused, plain):
+        assert torch.equal(_bits(a), _bits(p))
 
 
 def _hold_rows(tree, spec):

@@ -14,7 +14,13 @@ from test_torch_model), the same numpy inputs on both sides. What is held:
 * the random calibration playouts, with JAX's actions injected, equal to
   JAX's observations;
 * the port's own int8 tower against its bf16 ResNet within the accuracy
-  bounds of tests/test_quant.py:42-60.
+  bounds of tests/test_quant.py:42-60;
+* the tower's two fused stages a block (``conv_quantize``,
+  ``conv_residual``; plain versions on the CPU) bit for bit against the
+  chain of one quantize and one ``conv3x3_int8`` a conv that they replace,
+  and against a jitted JAX tower built from ``quant_apply``'s own ops; and
+  the stages' wrappers refusing what the CUDA kernel does not take before
+  they dispatch.
 """
 
 import jax
@@ -26,6 +32,7 @@ import torch
 from alphazero_general_tpu.envs import get_env as j_get_env
 from alphazero_general_tpu.models import quant as JQ
 from alphazero_general_tpu_torch.envs import get_env
+from alphazero_general_tpu_torch.envs.presets import PRESETS, preset_args
 from alphazero_general_tpu_torch.models import NNetWrapper
 from alphazero_general_tpu_torch.models import quant as Q
 from alphazero_general_tpu_torch.selfplay import selfplay as SP
@@ -271,3 +278,160 @@ def test_wrapper_requantizes_in_place_and_refuses_other_towers(monkeypatch):
         other = NNetWrapper(env, get_args(**SMALL, **knob), device="cpu")
         with pytest.raises(ValueError):
             other.quantized_inference()
+
+
+def _unfused_tower(m, obs):
+    """The tower as one quantize and one ``conv3x3_int8`` a conv, then the
+    residual sum: the chain that the fused stages replace."""
+    x = obs.permute(0, 2, 3, 1).to(torch.bfloat16)
+    y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2).to(torch.float32),
+                                   m.stem_w, padding=1)
+    x = torch.relu(torch.addcmul(m.stem_b, y.permute(0, 2, 3, 1),
+                                 m.stem_s)).to(torch.bfloat16)
+    xf = x
+    for i in range(m.depth):
+        blk = {k: getattr(m, f"block{i}_{k}")
+               for k in ("s1", "b1", "w1", "s2", "b2", "w2", "d2")}
+        acc = xf
+        for conv in ("1", "2"):
+            q = Q._quantize(acc, blk["s" + conv], blk["b" + conv])
+            acc = Q.conv3x3_int8(q, blk["w" + conv], m.channels)
+        xf = x.to(torch.float32).add_((acc * blk["d2"]).to(torch.bfloat16))
+        x = xf.to(torch.bfloat16)
+    return x
+
+
+@pytest.mark.parametrize("channels", [16, 12, 40],
+                         ids=["aligned", "padded_channels", "cin_not_x32"])
+def test_fused_stages_equal_the_unfused_chain(channels):
+    """``QuantResNet._tower`` through ``conv_quantize`` and ``conv_residual``
+    equals the unfused chain bit for bit, and hands out each conv's int8
+    input: a width that is not a multiple of 8 runs padded with zero
+    channels."""
+    env = get_env("connect4")
+    net = NNetWrapper(env, get_args(
+        num_channels=channels, depth=3, value_head_channels=4,
+        policy_head_channels=4, value_dense_layers=[32],
+        policy_dense_layers=[32], seed=channels), device="cpu")
+    q = net.quantized_inference(calib_obs=Q.calibration_observations(
+        env, batch=32, moves=6, device="cpu",
+        generator=torch.Generator().manual_seed(1)))
+    obs = torch.from_numpy(observations(16, seed=3))
+    with torch.inference_mode():
+        got = q._tower(obs)
+        assert got.shape == (16, 6, 7, channels)
+        assert torch.equal(_bits(got), _bits(_unfused_tower(q, obs)))
+        operands = q.conv_operands(obs)
+    assert len(operands) == 2 * q.depth
+    c8 = -(-channels // Q.ALIGN) * Q.ALIGN
+    for a, w in operands:
+        assert a.dtype == torch.int8 and a.shape == (16, 6, 7, c8)
+        assert w.shape == (c8, 9 * c8)
+
+
+def _jax_tower(qp, obs):
+    """The stem and tower of JAX ``quant_apply``, its own ops, jitted."""
+    x = jnp.transpose(obs, (0, 2, 3, 1)).astype(jnp.bfloat16)
+    x = JQ._conv_bf16(x, qp.stem_w)
+    x = jnp.maximum(x.astype(jnp.float32) * qp.stem_s + qp.stem_b, 0.0)
+    x = x.astype(jnp.bfloat16)
+    for blk in qp.blocks:
+        q1 = JQ._quantize_act(
+            jnp.maximum(x.astype(jnp.float32) * blk.s1 + blk.b1, 0.0))
+        acc1 = JQ._conv_int8(q1, blk.w1)
+        q2 = JQ._quantize_act(
+            jnp.maximum(acc1.astype(jnp.float32) * blk.s2 + blk.b2, 0.0))
+        acc2 = JQ._conv_int8(q2, blk.w2)
+        x = x + (acc2.astype(jnp.float32) * blk.d2).astype(jnp.bfloat16)
+    return x
+
+
+def test_fused_stages_match_the_jax_tower(nets):
+    """The tower of ``quant_from_jax`` of JAX's parameters, through the
+    fused stages, against the jitted JAX tower on the same observations:
+    within one bf16 ulp of the stream (the stems' float32 sums differ in
+    order, as in ``test_forward_matches_jitted_quant_apply``), and equal
+    where the stems agree."""
+    _, _, _, _, _, qp = nets
+    obs = observations(32, seed=9)
+    want = np.asarray(jax.jit(_jax_tower)(qp, jnp.asarray(obs))
+                      .astype(jnp.float32))
+    port = quant_from_jax(qp)
+    with torch.inference_mode():
+        got = port._tower(torch.from_numpy(obs)).to(torch.float32).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=2**-7, atol=2**-7)
+    assert (got == want).mean() > 0.99
+
+
+def _conv_operands(c=16, batch=2):
+    q = torch.zeros((batch, 6, 7, c), dtype=torch.int8)
+    wt = Q.int8_weight_matrix(torch.zeros((3, 3, c, c), dtype=torch.int8))
+    v = torch.zeros(c, dtype=torch.float32)
+    x = torch.zeros((batch, 6, 7, c), dtype=torch.bfloat16)
+    return q, wt, v, x
+
+
+_REFUSED = {
+    "float_activations": (TypeError, lambda q, wt, v, x: Q.conv_quantize(
+        q.float(), wt, v, v)),
+    "channel_mismatch": (ValueError, lambda q, wt, v, x: Q.conv_quantize(
+        q[..., :8].contiguous(), wt, v, v)),
+    "channels_not_x8": (ValueError, lambda q, wt, v, x: Q.conv_quantize(
+        q[..., :12].contiguous(), Q.int8_weight_matrix(
+            torch.zeros((3, 3, 12, 12), dtype=torch.int8))[:12, :108]
+        .contiguous(), v[:12], v[:12])),
+    "rows_not_contiguous": (ValueError, lambda q, wt, v, x: Q.conv_quantize(
+        q.transpose(1, 2), wt, v, v)),
+    "weight_not_contiguous": (ValueError, lambda q, wt, v, x: Q.conv_quantize(
+        q, wt.t().contiguous().t(), v, v)),
+    "scale_length": (ValueError, lambda q, wt, v, x: Q.conv_quantize(
+        q, wt, v[:8], v)),
+    "scale_dtype": (ValueError, lambda q, wt, v, x: Q.conv_quantize(
+        q, wt, v.double(), v)),
+    "stream_dtype": (TypeError, lambda q, wt, v, x: Q.conv_residual(
+        q, wt, x.float(), v, v, v)),
+    "stream_shape": (ValueError, lambda q, wt, v, x: Q.conv_residual(
+        q, wt, x[:1], v, v, v)),
+    "stream_not_contiguous": (ValueError, lambda q, wt, v, x:
+                              Q.conv_residual(q, wt, x.transpose(1, 2)
+                                              .contiguous().transpose(1, 2),
+                                              v, v, v)),
+    "scale_without_bias": (ValueError, lambda q, wt, v, x: Q.conv_residual(
+        q, wt, x, v, v, None)),
+    "other_device": (ValueError, lambda q, wt, v, x: Q.conv_quantize(
+        q, wt.to("meta"), v, v)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_REFUSED))
+def test_fused_conv_wrappers_refuse_what_the_kernel_does_not_take(
+        case, monkeypatch):
+    """Each wrapper raises on operands the CUDA kernel does not take, before
+    it dispatches to the kernel or the plain version."""
+
+    def dispatched(*a, **k):
+        raise AssertionError("dispatched")
+
+    monkeypatch.setattr(Q, "conv_quantize_plain", dispatched)
+    monkeypatch.setattr(Q, "conv_residual_plain", dispatched)
+    monkeypatch.setattr(Q, "_launch_conv", dispatched)
+    error, call = _REFUSED[case]
+    with pytest.raises(error):
+        call(*_conv_operands())
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_fused_conv_fits_every_preset(name):
+    """Each preset's tower fits the fused kernel's shared memory on the
+    card, both convs (the check the CUDA wrapper makes before a launch);
+    a 256-channel tower does not, and raises."""
+    env = get_env(name)
+    width = env.OBS_SHAPE[-1]
+    c8 = -(-preset_args(name).num_channels // Q.ALIGN) * Q.ALIGN
+    for residual in (False, True):
+        Q._check_fits(width, c8, c8, residual)
+        assert Q.conv_smem_bytes(width, c8, c8, residual) <= \
+            Q.SMEM_PER_BLOCK
+    with pytest.raises(ValueError):
+        Q._check_fits(width, 256, 256, True)
