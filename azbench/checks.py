@@ -7,8 +7,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from azbench import registry
 from azbench.common import same_state
-from azbench.reference import make_env, mcts, net, rules_module
+from azbench.reference import make_env, mcts, rules_module
 
 #: Dirichlet alpha of the root noise over the number of valid moves
 #: (the upstream project's MCTS.pyx).
@@ -31,9 +32,11 @@ def calibration_obs(ctx) -> torch.Tensor:
 
 def reference_eval(ctx, W: dict, precision: str, calib=None):
     """``eval(obs tensor [n, ...]) -> (pi, v)`` numpy of the reference
-    network in ``precision``: "float32", "int8" or "int4" (the quantized
-    tower, calibrated on ``calib``) or "fp8" (every conv and dense operand
-    rounded to float8 e4m3)."""
+    network of the configuration (``registry.network``) in ``precision``:
+    "float32", "int8" or "int4" (the quantized tower, calibrated on
+    ``calib``) or "fp8" (every conv and dense operand rounded to float8
+    e4m3)."""
+    net = registry.network(ctx.cfg)
     kw = {}
     if precision in LEVELS:
         kw = {"tower_levels": LEVELS[precision],

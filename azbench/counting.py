@@ -1,4 +1,5 @@
-"""The yardstick's arithmetic: operations of the network and bytes of the
+"""The yardstick's arithmetic: the network's least time at the card's
+peaks (from the operations its reference module counts) and bytes of the
 search kernels, computed from shapes and trees.
 
 Frozen here so that a change to the program cannot change how it is
@@ -12,37 +13,16 @@ from __future__ import annotations
 
 import numpy as np
 
-from azbench import peaks
-
-
-def resnet_ops(cfg: dict) -> dict:
-    """Operations of one row (one observation) through the ResNet of a
-    configuration: 2 per multiply-add of every conv and dense layer.
-    Returns {"tower": the 3x3 convs of the residual blocks, "other": the
-    stem, the 1x1 head convs and both MLPs}."""
-    a = cfg["args"]
-    c_in, h, w = cfg["obs_shape"]
-    hw = h * w
-    ch = a["num_channels"]
-    tower = 2 * a["depth"] * 2 * hw * 9 * ch * ch
-    stem = 2 * hw * 9 * c_in * ch
-    heads = 0
-    for head_ch, dense, out in (
-            (a["value_head_channels"], a["value_dense_layers"],
-             cfg["value_size"]),
-            (a["policy_head_channels"], a["policy_dense_layers"],
-             cfg["action_size"])):
-        heads += 2 * hw * ch * head_ch
-        sizes = [head_ch * hw, *dense, out]
-        heads += sum(2 * i * o for i, o in zip(sizes[:-1], sizes[1:]))
-    return {"tower": tower, "other": stem + heads}
+from azbench import peaks, registry
 
 
 def forward_least_s(cfg: dict, rows: int, tower_precision: str,
                     other_precision: str = "bfloat16") -> float:
     """The least time ``rows`` forwards need at the card's peaks: the tower
-    at the peak of ``tower_precision``, the rest at ``other_precision``'s."""
-    ops = resnet_ops(cfg)
+    at the peak of ``tower_precision``, the rest at ``other_precision``'s.
+    The operations of a row are the configuration's network's
+    (``registry.network(cfg).ops``)."""
+    ops = registry.network(cfg).ops(cfg)
     return rows * (ops["tower"] / peaks.PEAK_OF[tower_precision]
                    + ops["other"] / peaks.PEAK_OF[other_precision])
 

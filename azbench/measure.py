@@ -7,9 +7,13 @@ it, and the spread of each end-to-end metric:
 Each set runs every seed once, in order; the sets use the same seeds. Then
 ``--traced`` more runs with ``--trace 1`` on further seeds. Every result
 line is appended to ``--out`` with its set, seed and wall time; the summary
-(per set and metric: the median, the quartiles as ``statistics.quantiles``
-gives them, and the spread, their distance over the median) ends standard
-output.
+ends standard output. Per set and metric: the median, the quartiles as
+``statistics.quantiles`` gives them, the spread (their distance over the
+median) and the trimmed spread (the spread with the run farthest from the
+median left out, where that narrows it). Per metric, the check's noise
+rule: the mean of the sets' trimmed spreads against half the metric's bound
+in ``BENCHMARK.json``, the widest untrimmed spread, and the last set's
+median against the first's.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+from azbench import registry
 
 
 def one_run(workload: str, seed: int, seconds: float, trace: int) -> dict:
@@ -43,6 +49,35 @@ def spread(values: list) -> tuple:
     q1, med, q3 = statistics.quantiles(values, n=4)
     return statistics.median(values), q1, q3, (q3 - q1) / abs(
         statistics.median(values))
+
+
+def trimmed_spread(values: list) -> float:
+    """The spread, with the run farthest from the median left out where
+    that narrows it (as the check reads a set)."""
+    whole = spread(values)[3]
+    if len(values) < 4:
+        return whole
+    med = statistics.median(values)
+    far = max(range(len(values)), key=lambda k: abs(values[k] - med))
+    return min(whole, spread(values[:far] + values[far + 1:])[3])
+
+
+def rule(metric: str, sets: dict) -> str:
+    """The noise rule's reading of one metric over its sets of runs."""
+    bound = {m["name"]: m["bound"]
+             for m in registry.benchmark()["end_to_end"]}[metric]
+    full = [v for v in sets.values() if len(v) >= 2]
+    if len(full) < 2:
+        return f"rule {metric}: fewer than two sets"
+    trims = [trimmed_spread(v) for v in full]
+    mean = statistics.mean(trims)
+    widest = max(spread(v)[3] for v in full)
+    first, last = (statistics.median(v) for v in (full[0], full[-1]))
+    return (f"rule {metric} bound={bound!r} trimmed={trims!r} "
+            f"mean={mean!r} half_bound={bound / 2!r} "
+            f"{'holds' if mean <= bound / 2 else 'FAILS'} "
+            f"widest={widest!r} loose_at={8 * widest!r} "
+            f"last_over_first={last / first!r}")
 
 
 def main(argv=None) -> int:
@@ -84,7 +119,9 @@ def main(argv=None) -> int:
                 med, q1, q3, sp = spread(vals)
                 print(f"summary {a.workload} {metric} set={which} n="
                       f"{len(vals)} median={med!r} q1={q1!r} q3={q3!r} "
-                      f"spread={sp!r}", flush=True)
+                      f"spread={sp!r} trimmed={trimmed_spread(vals)!r}",
+                      flush=True)
+        print(f"summary {a.workload} {rule(metric, sets)}", flush=True)
     return 0
 
 

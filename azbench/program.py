@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import importlib
 
+from azbench import registry
+
 PACKAGE = "alphazero_general_tpu_torch"
 
 
@@ -28,42 +30,13 @@ def args(cfg: dict):
     return config.get_args(**merged)
 
 
-def program_state_dict(W: dict, cfg: dict) -> dict:
-    """The benchmark's named weights under the program's ResNet names."""
-    rename = {"conv": "weight"}
-    bn = {"weight": "weight", "bias": "bias", "mean": "running_mean",
-          "var": "running_var"}
-    out = {}
-    for name, x in W.items():
-        parts = name.split(".")
-        if parts[0] == "stem":
-            key = "stem_conv.weight" if parts[1] == "conv" \
-                else f"stem_norm.{bn[parts[2]]}"
-        elif parts[0].startswith("block"):
-            i = parts[0][5:]
-            kind, j = parts[1][:-1], parts[1][-1]
-            key = (f"blocks.{i}.conv{j}.weight" if kind == "conv"
-                   else f"blocks.{i}.norm{j}.{bn[parts[2]]}")
-        elif parts[0] in ("vhead", "phead"):
-            head = "value" if parts[0] == "vhead" else "policy"
-            key = f"{head}_conv.weight" if parts[1] == "conv" \
-                else f"{head}_norm.{bn[parts[2]]}"
-        else:
-            head = "value" if parts[0].startswith("v") else "policy"
-            key = f"{head}_mlp.layers.{parts[0][4:]}.{rename.get(parts[1], parts[1])}"
-        out[key] = x
-    return out
-
-
-def benchmark_names(cfg: dict, W: dict) -> dict:
-    """program name -> benchmark name, for the weights of ``W``."""
-    return {p: b for b, p in zip(W, program_state_dict(W, cfg))}
-
-
 def wrapper(env_cls, args_, device, W: dict, cfg: dict):
-    """The program's ``NNetWrapper`` with the benchmark's weights."""
+    """The program's ``NNetWrapper`` with the benchmark's weights, loaded
+    strictly under the names the configuration's network gives them
+    (``registry.network(cfg).program_names``)."""
     wr = _mod("models.wrapper").NNetWrapper(env_cls, args_, device=device)
-    wr.model.load_state_dict(program_state_dict(W, cfg))
+    names = registry.network(cfg).program_names(cfg)
+    wr.model.load_state_dict({names[k]: x for k, x in W.items()})
     return wr
 
 

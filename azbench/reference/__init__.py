@@ -1,6 +1,7 @@
 """The plain reference that decides ``correct``: the games' rules in NumPy,
 one game at a time; the network in float32 PyTorch (with the int8 or int4
-tower where a configuration states one); the search one game at a time.
+tower where a configuration states one), one module a network under
+``nets/``; the search one game at a time.
 Nothing here imports the program or JAX,
 and nothing here takes what the program derived: weights, calibration
 scales and draws are worked out again from what the benchmark made.

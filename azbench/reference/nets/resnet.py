@@ -10,7 +10,8 @@ wins and the draw). BatchNorm has epsilon 1e-5 and its running
 statistics.
 
 The weights are a dict of named float32 tensors (``layout``); the benchmark
-makes them and hands the same to the program.
+makes them and hands the same to the program, under the program's
+``ResNet`` names (``program_names``).
 
 The quantized tower (``tower_levels``): each residual conv's input is
 quantized per tensor to the integers 0..L (its scale the largest value the
@@ -22,10 +23,10 @@ control of an int8 configuration.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
+
+from azbench.reference.nets import fp8, full_float32, in_blocks
 
 EPS = 1e-5
 BN_FIELDS = ("weight", "bias", "mean", "var")
@@ -61,18 +62,52 @@ def layout(cfg: dict) -> list:
     return out
 
 
-@contextlib.contextmanager
-def full_float32():
-    """float32 products in full float32 (no TF32) inside the block."""
-    flags = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = flags
+def program_names(cfg: dict) -> dict:
+    """Each weight's name -> the program's ``ResNet`` state-dict key."""
+    bn = {"weight": "weight", "bias": "bias", "mean": "running_mean",
+          "var": "running_var"}
+    heads = {"v": "value", "p": "policy"}
+    out = {}
+    for name, _, _ in layout(cfg):
+        parts = name.split(".")
+        if parts[0] == "stem":
+            key = "stem_conv.weight" if parts[1] == "conv" \
+                else f"stem_norm.{bn[parts[2]]}"
+        elif parts[0].startswith("block"):
+            i = parts[0][5:]
+            kind, j = parts[1][:-1], parts[1][-1]
+            key = (f"blocks.{i}.conv{j}.weight" if kind == "conv"
+                   else f"blocks.{i}.norm{j}.{bn[parts[2]]}")
+        elif parts[0] in ("vhead", "phead"):
+            head = heads[parts[0][0]]
+            key = f"{head}_conv.weight" if parts[1] == "conv" \
+                else f"{head}_norm.{bn[parts[2]]}"
+        else:
+            key = f"{heads[parts[0][0]]}_mlp.layers.{parts[0][4:]}.{parts[1]}"
+        out[name] = key
+    return out
+
+
+def ops(cfg: dict) -> dict:
+    """Operations of one row (one observation): 2 per multiply-add of
+    every conv and dense layer. {"tower": the 3x3 convs of the residual
+    blocks, "other": the stem, the 1x1 head convs and both MLPs}."""
+    a = cfg["args"]
+    c_in, h, w = cfg["obs_shape"]
+    hw = h * w
+    ch = a["num_channels"]
+    tower = 2 * a["depth"] * 2 * hw * 9 * ch * ch
+    stem = 2 * hw * 9 * c_in * ch
+    heads = 0
+    for head_ch, dense, out in (
+            (a["value_head_channels"], a["value_dense_layers"],
+             cfg["value_size"]),
+            (a["policy_head_channels"], a["policy_dense_layers"],
+             cfg["action_size"])):
+        heads += 2 * hw * ch * head_ch
+        sizes = [head_ch * hw, *dense, out]
+        heads += sum(2 * i * o for i, o in zip(sizes[:-1], sizes[1:]))
+    return {"tower": tower, "other": stem + heads}
 
 
 def _bn(x, W, prefix):
@@ -80,13 +115,6 @@ def _bn(x, W, prefix):
     scale = torch.rsqrt(var + EPS) * W[f"{prefix}.weight"]
     return (x - mean[:, None, None]) * scale[:, None, None] \
         + W[f"{prefix}.bias"][:, None, None]
-
-
-def fp8(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to a float8 e4m3 operand (saturated at its largest finite
-    value): the control of a bfloat16 configuration, one precision below
-    it."""
-    return torch.clamp(x, -448.0, 448.0).to(torch.float8_e4m3fn).to(x.dtype)
 
 
 def _quant_conv(x, w, levels: int, amax) -> torch.Tensor:
@@ -162,17 +190,8 @@ def calibration_maxima(W: dict, obs: torch.Tensor, cfg: dict,
     return best
 
 
-@torch.no_grad()
 def evaluate(W: dict, obs: torch.Tensor, cfg: dict, tower_levels: int = 0,
-             maxima=None, low: bool = False, block_rows: int = 4096):
+             maxima=None, low: bool = False):
     """Policy and value probabilities of ``obs``, in blocks of rows."""
-    ps, vs = [], []
-    with full_float32():
-        for s in range(0, obs.shape[0], block_rows):
-            lp, lv = forward(W, obs[s:s + block_rows], cfg,
-                             tower_levels=tower_levels, maxima=maxima,
-                             low=low)
-            ps.append(torch.exp(lp))
-            vs.append(torch.exp(lv))
-    return torch.cat(ps), torch.cat(vs)
-
+    return in_blocks(lambda rows: forward(
+        W, rows, cfg, tower_levels=tower_levels, maxima=maxima, low=low), obs)

@@ -1,9 +1,10 @@
 """Everything of a cell is found by name: its configuration in
 ``configs/<name>.json``, its traffic mix in ``traffic/<name>.json`` (whose
-``driver`` names a module of ``drivers/``), the limits of its correctness
-checks in ``limits/<cell>.json``, and each per-layer metric's reader in
-``metrics/<metric>.py``. Adding a cell adds files and entries; no file
-here changes."""
+``driver`` names a module of ``drivers/``), the reference network of its
+configuration's ``nnet_type`` in ``reference/nets/<nnet_type>.py``, the
+limits of its correctness checks in ``limits/<cell>.json``, and each
+per-layer metric's reader in ``metrics/<metric>.py``. Adding a cell adds
+files and entries; no file here changes."""
 
 from __future__ import annotations
 
@@ -51,6 +52,18 @@ def limits(cell: str) -> dict:
 
 def driver(name: str):
     return importlib.import_module(f"azbench.drivers.{name}")
+
+
+def network(cfg: dict):
+    """The reference network module of a configuration's ``nnet_type``
+    (``reference/nets/<nnet_type>.py``; its interface is in
+    ``reference/nets/__init__.py``)."""
+    kind = cfg["args"]["nnet_type"]
+    path = HERE / "reference" / "nets" / f"{kind}.py"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"no reference network for nnet_type {kind!r}: expected {path}")
+    return importlib.import_module(f"azbench.reference.nets.{kind}")
 
 
 def metric_reader(name: str):

@@ -52,7 +52,7 @@ def _descend_bytes(cols, walk) -> int:
 
 def test_network_operations():
     c4 = registry.config("connect4")
-    ops = counting.resnet_ops(c4)
+    ops = registry.network(c4).ops(c4)
     one_conv = 2 * 42 * 9 * 128 * 128
     assert ops["tower"] == 16 * one_conv
     assert 2048 * one_conv == pytest.approx(25.4e9, rel=2e-3)

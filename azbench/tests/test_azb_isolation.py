@@ -47,7 +47,7 @@ def test_reference_imports_nothing_of_the_port():
         assert PORT not in names and not names & FORBIDDEN, path
         assert PORT not in path.read_text(), path
     code = ("import sys, azbench.reference, azbench.reference.mcts, "
-            "azbench.reference.net; "
+            "azbench.reference.nets.resnet, azbench.reference.nets.fc; "
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN | {PORT})!r}]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -8,15 +8,16 @@ import math
 
 import torch
 
-from azbench.reference.net import layout
+from azbench import registry
 
 
 def make(cfg: dict, seed: int, device) -> dict:
-    """Named float32 weights (``reference.net.layout``): conv and dense
-    weights normal with variance 1/fan-in, biases and BatchNorm shifts and
-    running means normal at 0.1, BatchNorm scales 1 + 0.1·normal, running
-    variances exp(0.2·normal)."""
-    shapes = layout(cfg)
+    """Named float32 weights (the ``layout`` of the configuration's
+    network, ``registry.network``): conv and dense weights normal with
+    variance 1/fan-in, biases and BatchNorm shifts and running means normal
+    at 0.1, BatchNorm scales 1 + 0.1·normal, running variances
+    exp(0.2·normal)."""
+    shapes = registry.network(cfg).layout(cfg)
     total = sum(math.prod(s) for _, s, _ in shapes)
     gen = torch.Generator(device).manual_seed(seed)
     z = torch.randn(total, generator=gen, device=device)
